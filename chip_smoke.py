@@ -8,27 +8,50 @@ port's package is not beside it. Phases, each printed as one line:
   3. each kernel against its plain PyTorch version on the card, at
      1280x720 on a batch of synthetic content as large as the main path's
      batches (16 frames): K5 decide (all 13 maps equal), K6 intra scan
-     (recon + levels equal, tiles 8x6 and none), K7 deblock (equal), with
+     (recon + levels equal, tiles 8x6 and none), K7 deblock (equal), K8
+     SAO statistics of the deblocked batch against the sources at tier 1
+     (the main path's: luma, EO classes 0/1) and tier 4 (all classes, band
+     offset, chroma), K22 (K8's per-frame wrapper) on frame 0, K9 SAO
+     applied with the host decision's parameters at both tiers, K11
+     reconstruction from K6's levels (equal to the plain version AND to
+     K6's reconstruction, tiles 8x6 and none), with
      CUDA-event medians of the kernel and of the plain version and the
      least time the card could take (bound);
-  4. the main path: HevcEncoder(1280x720, ultrafast, QP 27, all-intra,
-     tiles 8x6, SAO off) on 32 frames, once to warm up and once timed with
-     the launch counts reset just before; every kernel must have launched,
-     the recon luma PSNR must exceed 30 dB, and the timed stream must equal
-     the same encode on the plain versions byte for byte, as must a
-     2-frame encode (the batch-of-2 path).
-The line before the last is the JSON kernel table; the last line is the
-device JSON. Nothing here imports jax or ks265codec_tpu.
+  4. the main path: HevcEncoder with bench.py's configuration (1280x720,
+     ultrafast, QP 27, all-intra, tiles 8x6, SAO from the preset) on 32
+     frames, once to warm up and once timed with the launch counts reset
+     just before; every encode kernel must have launched, the recon luma
+     PSNR must exceed 30 dB, and the timed stream must equal the same
+     encode on the plain versions byte for byte, as must a 2-frame encode
+     (the batch-of-2 path);
+  5. the decode path: HevcDecoder on the card decodes the timed stream
+     (warm-up on its first pictures, then timed with the launch counts
+     reset): every picture through the fast path, every frame's md5 equal
+     to the encoder's reconstruction, K11, K7 and K9 launched; the first 4
+     pictures decode the same with reference=True;
+  6. the SAO-off encode (4 frames): K5, K6 and K7 launched, kernel
+     stream == plain stream;
+  7. the CLIs: app_encoder on 8 frames of a .yuv launches every encode
+     kernel and writes HevcEncoder's bytes, and app_decoder -md5 1
+     launches K11, K7 and K9 and prints the encoder's md5s.
+The line before the last is the JSON kernel table with the main path's
+encode and decode fps; the last line is the device JSON. Nothing here
+imports jax or ks265codec_tpu.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,6 +81,11 @@ def synth_frames(n: int):
                     0, 255).astype(np.uint8)
         out.append((y, u, v))
     return out
+
+
+def md5s(frames) -> list:
+    return [tuple(hashlib.md5(np.ascontiguousarray(p).tobytes()).hexdigest()
+                  for p in (f.y, f.u, f.v)) for f in frames]
 
 
 def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
@@ -98,8 +126,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from ks265codec_tpu_torch.cli import app_decoder, app_encoder
+    from ks265codec_tpu_torch.decode.decoder import HevcDecoder
     from ks265codec_tpu_torch.encode.config import EncoderConfig
-    from ks265codec_tpu_torch.encode.encoder import HevcEncoder
+    from ks265codec_tpu_torch.encode.encoder import HevcEncoder, sao_decisions
     from ks265codec_tpu_torch.encode.intra_frame import (decision_maps8,
                                                          pad_plane,
                                                          tile_region_maps)
@@ -108,6 +138,8 @@ def main() -> int:
     from ks265codec_tpu_torch.ops import _build
     from ks265codec_tpu_torch.ops import deblock as dbk
     from ks265codec_tpu_torch.ops import decide as dcd
+    from ks265codec_tpu_torch.ops import saoapply as sap
+    from ks265codec_tpu_torch.ops import saostats as sst
     from ks265codec_tpu_torch.ops import wavefront as wf
     from ks265codec_tpu_torch.utils.yuv import YUVFrame
 
@@ -126,13 +158,14 @@ def main() -> int:
     # inputs built as HevcEncoder._dispatch builds them, at its batch size
     frames = synth_frames(FRAMES)
     cfg_tiles = dict(width=W, height=H, preset="ultrafast", qp=27,
-                     intra_period=1, sao=0)
+                     intra_period=1)
     enc_t = HevcEncoder(EncoderConfig(tiles="8x6", **cfg_tiles))
     enc_n = HevcEncoder(EncoderConfig(**cfg_tiles))
     F = enc_t._sizes[0]                 # the main path's batch: 16 frames
     sps, pps = enc_t.sps, enc_t.pps
     ph = sps.pic_height_in_ctbs * sps.ctb_size
     pw = sps.pic_width_in_ctbs * sps.ctb_size
+    cs = sps.ctb_size
     src = [torch.from_numpy(np.stack([
         pad_plane(fr[c], h, w).astype(np.uint8) for fr in frames[:F]]))
         .to(dev).contiguous()
@@ -143,7 +176,7 @@ def main() -> int:
     dargs = [torch.as_tensor(a, device=dev) for a in (qpa, qpca, lam, ls)]
     device_tables(dev)
     device_bits_table(dev)
-    rows = []
+    rows = {}
 
     got = dcd.decide_frames_cuda(*src, *dargs)
     want = dcd.decide_frames_plain(*src, *dargs)
@@ -169,18 +202,20 @@ def main() -> int:
     nbytes = F * ph * pw * 1.5 + sum(
         v.numel() * v.element_size() for v in got.values())
     bnd, by = bound_ms(nbytes, ops)
-    rows.append(dict(name="decide", route="cuda",
-                     source="ks265codec_tpu_torch/csrc/decide.cu",
-                     replaces="ks265codec_tpu/ops/decide.py:397",
-                     max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                     bound_by=by, library_ms=None,
-                     counters=["decide_pass_a", "decide_pass_b",
-                               "decide_split"]))
+    rows["decide"] = dict(name="decide", route="cuda",
+                          source="ks265codec_tpu_torch/csrc/decide.cu",
+                          replaces="ks265codec_tpu/ops/decide.py:397",
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bnd, bound_by=by, library_ms=None,
+                          counters=["decide_pass_a", "decide_pass_b",
+                                    "decide_split"])
     print(f"phase K5 decide: 13 maps equal, kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
 
     maps = {k: v.cpu().numpy() for k, v in got.items()}
-    recon_for_deblock = None
+    scans = {}
+    strong = bool(sps.strong_intra_smoothing)
+    tab = device_tables(dev)
     for tag, enc in (("tiles 8x6", enc_t), ("no tiles", enc_n)):
         _, tile8, _ = tile_region_maps(enc.pps, enc.sps)
         batch = []
@@ -194,8 +229,6 @@ def main() -> int:
                               tile8=tile8))
         sched = wf.WavefrontIntraCoder().pack(
             batch, pps.cb_qp_offset, pps.cr_qp_offset, sps).to(dev)
-        strong = bool(sps.strong_intra_smoothing)
-        tab = device_tables(dev)
         gk = wf.code_intra_frames_cuda(*src, sched, strong, tab)
         gp = wf.code_intra_frames_plain(*src, sched, strong)
         torch.cuda.synchronize()
@@ -208,12 +241,12 @@ def main() -> int:
                                                        tab))
         plain = cuda_ms(lambda: wf.code_intra_frames_plain(*src, sched,
                                                            strong),
-                        warm=False)
+                        reps=3, warm=False)
         err = max(max_abs_err(gk[0], gp[0]), max_abs_err(gk[1], gp[1]))
+        scans[tag] = (sched, gk, batch)
+        recs = sched.recs.cpu().numpy()
+        sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
         if tag == "tiles 8x6":
-            recon_for_deblock = (gk[0], batch)
-            recs = sched.recs.cpu().numpy()
-            sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
             # operations: 4 transform stages of n multiply-adds per sample
             # (matrix form, as the kernel computes them), luma and both
             # chroma blocks; bytes: sources in, recon and int16 levels out
@@ -221,24 +254,24 @@ def main() -> int:
                                + 2 * (sizes / 2) ** 2 * 4 * (sizes / 2)))
             nbytes = F * ph * pw * 1.5 * (1 + 1 + 2)
             bnd, by = bound_ms(nbytes, ops)
-            rows.append(dict(name="intra_scan", route="cuda",
-                             source="ks265codec_tpu_torch/csrc/intra_scan.cu",
-                             replaces="ks265codec_tpu/ops/wavefront.py:647",
-                             max_abs_err=err, ms=ms, plain_ms=plain,
-                             bound_ms=bnd, bound_by=by, library_ms=None,
-                             counters=["intra_level"]))
+            rows["intra_scan"] = dict(
+                name="intra_scan", route="cuda",
+                source="ks265codec_tpu_torch/csrc/intra_scan.cu",
+                replaces="ks265codec_tpu/ops/wavefront.py:647",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=None, counters=["intra_level"])
         print(f"phase K6 intra scan ({tag}): recon and levels equal, "
               f"{len(sched.levels)} levels, kernel {ms:.3f} ms, plain "
               f"{plain:.3f} ms", flush=True)
 
-    recon, batch = recon_for_deblock
+    sched, gk, batch = scans["tiles 8x6"]
+    recon = gk[0]
     bs = [dbk.intra_bs_maps(it["log2m"]) for it in batch]
     bs_v = torch.from_numpy(np.stack([b[0] for b in bs]).astype(np.uint8)).to(dev)
     bs_h = torch.from_numpy(np.stack([b[1] for b in bs]).astype(np.uint8)).to(dev)
     qp4 = torch.full(bs_v.shape, 27, dtype=torch.uint8, device=dev)
     dba = (bs_v, bs_h, qp4, pps.beta_offset_div2, pps.tc_offset_div2,
            pps.cb_qp_offset, pps.cr_qp_offset, sps.width, sps.height)
-    tab = device_tables(dev)
     dk = dbk.deblock_frames_cuda(*recon, *dba, tab)
     dp = dbk.deblock_frames_plain(*recon, *dba)
     torch.cuda.synchronize()
@@ -256,27 +289,192 @@ def main() -> int:
     seg = int((bs_v > 0).sum() + (bs_h > 0).sum())
     seg16 = int((bs_v[:, :, ::4] == 2).sum() + (bs_h[:, ::4, :] == 2).sum())
     bnd, by = bound_ms(nbytes, 160.0 * seg + 40.0 * seg16)
-    rows.append(dict(name="deblock", route="cuda",
-                     source="ks265codec_tpu_torch/csrc/deblock.cu",
-                     replaces="ks265codec_tpu/ops/deblock.py:133",
-                     max_abs_err=max_abs_err(dk, dp), ms=ms, plain_ms=plain,
-                     bound_ms=bnd, bound_by=by, library_ms=None,
-                     counters=["deblock_edges"]))
+    rows["deblock"] = dict(name="deblock", route="cuda",
+                           source="ks265codec_tpu_torch/csrc/deblock.cu",
+                           replaces="ks265codec_tpu/ops/deblock.py:133",
+                           max_abs_err=max_abs_err(dk, dp), ms=ms,
+                           plain_ms=plain, bound_ms=bnd, bound_by=by,
+                           library_ms=None, counters=["deblock_edges"])
     print(f"phase K7 deblock: equal, kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
 
-    # ---- phase 4: the main path through the encoder's entry points
+    # K8 on the deblocked batch against the sources, at the main path's
+    # tier (1) and the full tier (4), as HevcEncoder._dispatch gates it
+    sao_params = {}
+    for tier in (1, 4):
+        ncl, use_bo = (2 if tier <= 1 else 4), tier >= 3
+        planes = list(zip(dk, src, (0, 1, 1)))[:3 if use_bo else 1]
+
+        def stats(fn, planes=planes, ncl=ncl, use_bo=use_bo):
+            return [fn(r, s, sps.width >> sh, sps.height >> sh, cs >> sh,
+                       ncl, use_bo) for r, s, sh in planes]
+
+        sk = stats(sst.sao_stats_frames_cuda)
+        sp = stats(sst.sao_stats_frames_plain)
+        torch.cuda.synchronize()
+        for c, (a, b) in enumerate(zip(sk, sp)):
+            for name, x, y in zip(("eo_cnt", "eo_err", "bo_cnt", "bo_err"),
+                                  a, b):
+                if (x is None) != (y is None) or (
+                        x is not None and not torch.equal(x, y)):
+                    raise AssertionError(f"K8 SAO stats (tier {tier}): "
+                                         f"plane {c} {name} differs")
+        ms = cuda_ms(lambda: stats(sst.sao_stats_frames_cuda))
+        plain = cuda_ms(lambda: stats(sst.sao_stats_frames_plain),
+                        warm=False)
+        # bytes: rec and src read once, the bins written once; operations:
+        # about 15 int32 instructions per sample and EO class (two
+        # neighbour loads, two compares, the category and its bin) and 4
+        # per sample for the band, over the planes of this tier
+        nsamp = sum(r.numel() for r, _, _ in planes)
+        nbytes = 2.0 * nsamp + sum(x.numel() * 4 for st in sk for x in st
+                                   if x is not None)
+        bnd, by = bound_ms(nbytes, nsamp * (15.0 * ncl + (4 if use_bo
+                                                          else 0)))
+        if tier == 1:
+            rows["sao_stats"] = dict(
+                name="sao_stats", route="cuda",
+                source="ks265codec_tpu_torch/csrc/sao_stats.cu",
+                replaces="ks265codec_tpu/ops/saostats.py:32",
+                max_abs_err=max(max_abs_err([x for x in a if x is not None],
+                                            [y for y in b if y is not None])
+                                for a, b in zip(sk, sp)),
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None, counters=["sao_stats"])
+        print(f"phase K8 SAO stats (tier {tier}, {len(planes)} plane(s), "
+              f"{ncl} EO classes, band {use_bo}): equal, kernel {ms:.3f} ms,"
+              f" plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
+              flush=True)
+        arrs = sao_decisions(sk, 27, tier)
+        sao_params[tier] = [torch.from_numpy(np.stack([a[k] for a in arrs]))
+                            .to(dev) for k in range(4)]
+
+    # K22: K8's per-frame wrapper (all EO classes, band offset, three
+    # planes from host arrays to host arrays) on frame 0, against the plain
+    # statistics of the same planes on the card
+    fs0 = types.SimpleNamespace(sps=sps, y=dk[0][0].cpu().numpy(),
+                                cb=dk[1][0].cpu().numpy(),
+                                cr=dk[2][0].cpu().numpy())
+    src0 = [s[0].cpu().numpy() for s in src]
+    planes0 = [(d[:1], s[:1], sh) for d, s, sh in zip(dk, src, (0, 1, 1))]
+
+    def plain0():
+        return [sst.sao_stats_frames_plain(r, s, sps.width >> sh,
+                                           sps.height >> sh, cs >> sh)
+                for r, s, sh in planes0]
+
+    got = sst.sao_frame_stats(fs0, *src0)
+    for c, (a, b) in enumerate(zip(got, plain0())):
+        if not all(np.array_equal(x, y[0].cpu().numpy())
+                   for x, y in zip(a, b)):
+            raise AssertionError(f"K22 frame stats: plane {c} differs")
+    ms = cuda_ms(lambda: sst.sao_frame_stats(fs0, *src0))
+    plain = cuda_ms(plain0, warm=False)
+    # counted as K8 at tier 4, on one frame
+    nsamp = sum(r.numel() for r, _, _ in planes0)
+    bnd, by = bound_ms(2.0 * nsamp + sum(x.nbytes for st in got for x in st),
+                       nsamp * (15.0 * 4 + 4))
+    print(f"phase K22 frame stats (frame 0, 3 planes, 4 EO classes, band): "
+          f"equal, wrapper {ms:.3f} ms (3 K8 launches with the host "
+          f"copies), plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
+
+    for tier in (1, 4):
+        prm = sao_params[tier]
+        sa = (*dk, *prm, True, True, sps.width, sps.height, cs)
+        ak = sap.sao_apply_frames_cuda(*sa)
+        ap = sap.sao_apply_frames_plain(*sa)
+        torch.cuda.synchronize()
+        for c, x, y in zip("YUV", ak, ap):
+            if not torch.equal(x, y):
+                raise AssertionError(f"K9 SAO apply (tier {tier}): plane "
+                                     f"{c} differs")
+        changed = int(sum((x != d).sum() for x, d in zip(ak, dk)))
+        ms = cuda_ms(lambda: sap.sao_apply_frames_cuda(*sa))
+        plain = cuda_ms(lambda: sap.sao_apply_frames_plain(*sa), warm=False)
+        # bytes: every plane read and written once, the parameters read;
+        # operations, counted from this run's type maps: about 12 int32
+        # instructions per sample of a band- or edge-offset CTB in the
+        # picture (CTB index, type, band or two neighbour compares, clip);
+        # a sample of an SAO-off CTB is a copy, counted in bytes only
+        nsamp = sum(x.numel() for x in dk)
+        nbytes = 2.0 * nsamp + sum(x.numel() for x in prm)
+        nsao = 0
+        for c in range(3):
+            n, sh = cs >> (c > 0), int(c > 0)
+            on = (prm[0][:, c] != 0).to(torch.int32)
+            nsao += int(on.repeat_interleave(n, 1).repeat_interleave(n, 2)[
+                :, :sps.height >> sh, :sps.width >> sh].sum())
+        bnd, by = bound_ms(nbytes, 12.0 * nsao)
+        if tier == 1:
+            rows["sao_apply"] = dict(
+                name="sao_apply", route="cuda",
+                source="ks265codec_tpu_torch/csrc/sao_apply.cu",
+                replaces="ks265codec_tpu/ops/saoapply.py:61",
+                max_abs_err=max_abs_err(ak, ap), ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                counters=["sao_apply"])
+        print(f"phase K9 SAO apply (tier {tier}): equal, {nsao} samples in "
+              f"SAO-on CTBs, {changed} changed, kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K11 from the levels K6 wrote, with K6's schedule
+    for tag, (sched, gk, _) in scans.items():
+        rk = wf.recon_intra_frames_cuda(*gk[1], sched, strong, tab)
+        rp = wf.recon_intra_frames_plain(*gk[1], sched, strong)
+        torch.cuda.synchronize()
+        for c, x, y, z in zip("YUV", rk, rp, gk[0]):
+            if not torch.equal(x, y):
+                raise AssertionError(f"K11 intra recon ({tag}): plane {c} "
+                                     "differs from its plain version")
+            if not torch.equal(x, z):
+                raise AssertionError(f"K11 intra recon ({tag}): plane {c} "
+                                     "differs from K6's reconstruction")
+        ms = cuda_ms(lambda: wf.recon_intra_frames_cuda(*gk[1], sched,
+                                                        strong, tab))
+        plain = cuda_ms(lambda: wf.recon_intra_frames_plain(*gk[1], sched,
+                                                            strong),
+                        reps=3, warm=False)
+        if tag == "tiles 8x6":
+            recs = sched.recs.cpu().numpy()
+            sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
+            # operations: the 2 inverse-transform stages of n multiply-adds
+            # per sample (matrix form), luma and both chroma blocks; bytes:
+            # int16 levels in, recon out
+            ops = float(np.sum(sizes ** 2 * 2 * sizes
+                               + 2 * (sizes / 2) ** 2 * 2 * (sizes / 2)))
+            bnd, by = bound_ms(F * ph * pw * 1.5 * (2 + 1), ops)
+            rows["intra_recon"] = dict(
+                name="intra_recon", route="cuda",
+                source="ks265codec_tpu_torch/csrc/intra_scan.cu",
+                replaces="ks265codec_tpu/ops/wavefront.py:433",
+                max_abs_err=max_abs_err(rk, rp), ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                counters=["intra_recon"])
+        print(f"phase K11 intra recon ({tag}): equal to its plain version "
+              f"and to K6's recon, {len(sched.levels)} levels, kernel "
+              f"{ms:.3f} ms, plain {plain:.3f} ms", flush=True)
+
+    # ---- phase 4: the main path through the encoder's entry points, in
+    # bench.py's configuration (SAO from the preset: ultrafast = tier 1)
     yuv = [YUVFrame(y, u, v, poc=i) for i, (y, u, v) in enumerate(frames)]
     cfg = dict(width=W, height=H, preset="ultrafast", qp=27, intra_period=1,
-               tiles="8x6", sao=0)
+               tiles="8x6")
 
-    def encode(frames_in, reference=False):
-        enc = HevcEncoder(EncoderConfig(**cfg), reference=reference)
+    def encode(frames_in, reference=False, **over):
+        enc = HevcEncoder(EncoderConfig(**dict(cfg, **over)),
+                          reference=reference)
         efs = []
         for fr in frames_in:
             efs += enc.encode_frame(fr)
         efs += enc.flush()
         return efs
+
+    def check_counts(names, counts, path):
+        missing = [c for c in names if counts.get(c, 0) == 0]
+        if missing:
+            raise AssertionError(f"{path} never launched {missing}")
+        return sum(counts[c] for c in names)
 
     encode(yuv)                                  # warm-up
     torch.cuda.synchronize()
@@ -286,24 +484,22 @@ def main() -> int:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = dict(_build.launches)
-    for r in rows:
-        missing = [c for c in r["counters"] if counts.get(c, 0) == 0]
-        if missing:
-            raise AssertionError(f"main path never launched {missing}")
-        r["launches"] = sum(counts[c] for c in r["counters"])
+    for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply"):
+        rows[key]["launches"] = check_counts(rows[key]["counters"], counts,
+                                             "main path")
     stream = b"".join(e.data for e in efs)
+    recons = sorted(efs, key=lambda e: e.display_idx)
     mse = np.mean([np.mean((e.recon.y.astype(np.float64)
                             - f.y.astype(np.float64)) ** 2)
-                   for e, f in zip(sorted(efs, key=lambda e: e.display_idx),
-                                   yuv)])
+                   for e, f in zip(recons, yuv)])
     psnr = 10 * np.log10(255.0 ** 2 / mse)
     if not psnr > 30.0:
         raise AssertionError(f"recon luma PSNR {psnr:.2f} dB <= 30 dB")
     fps = len(efs) / secs
-    print(f"phase main path: {len(efs)} frames 1280x720 in {secs:.3f} s = "
-          f"{fps:.3f} fps on {card}; stream {len(stream)} bytes md5 "
-          f"{hashlib.md5(stream).hexdigest()}; luma PSNR {psnr:.3f} dB; "
-          f"launches {counts}", flush=True)
+    print(f"phase main path: {len(efs)} frames {W}x{H} (SAO tier 1) in "
+          f"{secs:.3f} s = {fps:.3f} fps on {card}; stream {len(stream)} "
+          f"bytes md5 {hashlib.md5(stream).hexdigest()}; luma PSNR "
+          f"{psnr:.3f} dB; launches {counts}", flush=True)
     plain_stream = b"".join(e.data for e in encode(yuv, reference=True))
     if plain_stream != stream:
         raise AssertionError(f"{FRAMES}-frame stream: kernels and plain "
@@ -316,10 +512,107 @@ def main() -> int:
     print(f"phase kernels vs plain stream: {FRAMES} frames ({len(stream)} "
           f"bytes) and 2 frames ({len(a)} bytes) identical", flush=True)
 
-    for r in rows:
+    # ---- phase 5: the decode path, HevcDecoder on the card
+    enc_md5 = md5s(e.recon for e in recons)
+    aus = [e.data for e in efs]                 # coding order = display
+    HevcDecoder().decode_all(b"".join(aus[:2]))  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dec = HevcDecoder()
+    decoded = dec.decode_all(stream)
+    torch.cuda.synchronize()
+    dsecs = time.perf_counter() - t0
+    dcounts = dict(_build.launches)
+    dec_md5 = md5s(decoded)
+    decode_fps = len(decoded) / dsecs
+    if dec.fast_pictures != FRAMES or len(decoded) != FRAMES:
+        raise AssertionError(f"decode: {dec.fast_pictures} of "
+                             f"{len(decoded)} pictures took the fast path")
+    if dec_md5 != enc_md5:
+        bad = [i for i, (x, y) in enumerate(zip(dec_md5, enc_md5)) if x != y]
+        raise AssertionError(f"decode: frames {bad} differ from the "
+                             "encoder's reconstruction")
+    check_counts(["intra_recon", "deblock_edges", "sao_apply"], dcounts,
+                 "decode path")
+    rows["intra_recon"]["launches"] = dcounts["intra_recon"]
+    ref4 = md5s(HevcDecoder(reference=True).decode_all(b"".join(aus[:4])))
+    if ref4 != dec_md5[:4]:
+        raise AssertionError("decode: reference=True differs on the first "
+                             "4 pictures")
+    print(f"phase decode: {len(decoded)} frames {W}x{H} in {dsecs:.3f} s = "
+          f"{decode_fps:.3f} fps on {card}; all {dec.fast_pictures} through "
+          "the fast path, md5 equal to the encoder's recon, first 4 equal "
+          f"with reference=True; launches {dcounts}", flush=True)
+
+    # ---- phase 6: the SAO-off encode (the previous slice's path)
+    _build.reset_launches()
+    a = b"".join(e.data for e in encode(yuv[:4], sao=0))
+    torch.cuda.synchronize()
+    for key in ("decide", "intra_scan", "deblock"):
+        check_counts(rows[key]["counters"], _build.launches, "SAO-off path")
+    b = b"".join(e.data for e in encode(yuv[:4], reference=True, sao=0))
+    if a != b:
+        raise AssertionError("SAO-off stream: kernels and plain versions "
+                             "differ")
+    print(f"phase SAO off: 4 frames ({len(a)} bytes) kernel stream == plain "
+          "stream", flush=True)
+
+    # ---- phase 7: the CLIs on the card
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        (work / "in.yuv").write_bytes(b"".join(f.tobytes() for f in yuv[:8]))
+        argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
+                "-frms", "8", "-b", str(work / "out.265"), "-preset",
+                "ultrafast", "-qp", "27", "-iper", "1", "-rdoq", "0",
+                "-md5", "1", "-opts", "tiles=8x6"]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = app_encoder.main(argv)
+        for key in ("decide", "intra_scan", "deblock", "sao_stats",
+                    "sao_apply"):
+            check_counts(rows[key]["counters"], _build.launches,
+                         "app_encoder")
+        ccfg = app_encoder.cfg_from_args(
+            app_encoder.build_parser().parse_args(argv))
+        enc = HevcEncoder(ccfg)
+        cefs = []
+        for fr in yuv[:8]:
+            cefs += enc.encode_frame(fr)
+        cefs += enc.flush()
+        want = b"".join(e.data for e in cefs)
+        if rc != 0 or (work / "out.265").read_bytes() != want:
+            raise AssertionError("app_encoder: bytes differ from "
+                                 "HevcEncoder's")
+        cli_md5 = [ln.split()[1] for ln in out.getvalue().splitlines()
+                   if ln.startswith("  MD5 ")]
+        want_md5 = [",".join(m) for m in md5s(e.recon for e in cefs)]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = app_decoder.main(["-b", str(work / "out.265"), "-md5", "1"])
+        check_counts(["intra_recon", "deblock_edges", "sao_apply"],
+                     _build.launches, "app_decoder")
+        dec_lines = [ln.split()[3] for ln in out.getvalue().splitlines()
+                     if ln.startswith("POC ")]
+        if rc != 0 or not cli_md5 == dec_lines == want_md5:
+            raise AssertionError("app_decoder -md5 1: lines differ from the "
+                                 "encoder's md5s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase CLI: app_encoder 8 frames ({len(want)} bytes) == "
+          "HevcEncoder, app_decoder -md5 1 == encoder md5s", flush=True)
+
+    table = []
+    for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
+                "intra_recon"):
+        r = rows[key]
         r.pop("counters")
+        table.append(r)
     print(smi)
-    print(json.dumps({"kernels": rows, "main_path_fps": fps}))
+    print(json.dumps({"kernels": table, "main_path_fps": fps,
+                      "decode_fps": decode_fps}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

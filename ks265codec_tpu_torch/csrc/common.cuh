@@ -30,6 +30,15 @@ static __device__ __forceinline__ int ks_clip3(int lo, int hi, int v) {
 
 static __device__ __forceinline__ int ks_log2(int n) { return 31 - __clz(n); }
 
+static __device__ __forceinline__ int ks_sgn(int v) {
+  return (v > 0) - (v < 0);
+}
+
+// SAO edge-offset neighbours (dy_a, dx_a, dy_b, dx_b) of EO classes 0..3:
+// horizontal, vertical, 135 and 45 degrees (spec 8.7.3, table 8-13).
+static __constant__ int ks_eo_offs[4][4] = {
+    {0, -1, 0, 1}, {-1, 0, 1, 0}, {-1, -1, 1, 1}, {-1, 1, 1, -1}};
+
 static __device__ __forceinline__ const int* ks_dct(const int* tab, int n) {
   return tab + (n == 4 ? T_DCT4 : n == 8 ? T_DCT8 : n == 16 ? T_DCT16
                                                                 : T_DCT32);

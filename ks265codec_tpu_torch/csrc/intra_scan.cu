@@ -1,6 +1,7 @@
-// K6 — intra coding scan, one dependency level per launch.
+// K6 — intra coding scan, and K11 — intra reconstruction from parsed
+// levels, one dependency level per launch.
 //
-// Replaces ks265codec_tpu/ops/wavefront.py::_code_intra_frame_core
+// K6 replaces ks265codec_tpu/ops/wavefront.py::_code_intra_frame_core
 // (`_process_class`, `_refs_from_borders`, `_fwd_quant`, `_dequant_itx`):
 // for every CU the native schedule put on this level, one thread block
 // builds the reference samples from the reconstruction planes (with
@@ -9,6 +10,12 @@
 // residual, dequantises and inverse-transforms it and writes the
 // reconstruction and the levels; then the same for the two chroma blocks.
 // The frame is blockIdx.y.
+//
+// K11 replaces ks265codec_tpu/ops/wavefront.py::_recon_intra_frame_core
+// (`_recon_class`): the decoder's twin, which reads each block's levels
+// from the parsed coefficient planes instead of quantising a source. Both
+// kernels share the reference build and prediction (`predict_block`) and
+// the dequantisation and inverse transform (`reconstruct_block`).
 //
 // Bound: a level has few CUs (the wavefront is at most a few hundred CUs
 // wide at 720p) and each CU's blocks run one after another, so the scan is
@@ -36,17 +43,16 @@ struct Scratch {
   int flag;
 };
 
-// Code one n x n block of one plane in place. rec/lev: this frame's
-// planes (stride w, height h); (x0, y0) the block origin in the plane;
-// expand: luma samples per plane sample (1 luma, 2 chroma), so that
-// availability group g covers plane samples [4g/expand, 4(g+1)/expand).
-__device__ void code_block(const int* tab, const uint8_t* src, uint8_t* rec,
-                           int16_t* lev, int w, int h, int x0, int y0,
-                           int n, int expand, bool luma, int mode, int qp,
-                           unsigned al, unsigned ac, unsigned at,
-                           bool strong, Scratch& s) {
+// Reference samples and prediction of one n x n block of one plane into
+// s.pred. rec: this frame's reconstruction plane (stride w, height h);
+// (x0, y0) the block origin in the plane; expand: luma samples per plane
+// sample (1 luma, 2 chroma), so that availability group g covers plane
+// samples [4g/expand, 4(g+1)/expand). Ends synchronised.
+__device__ void predict_block(const int* tab, const uint8_t* rec, int w,
+                              int h, int x0, int y0, int n, int expand,
+                              bool luma, int mode, unsigned al, unsigned ac,
+                              unsigned at, bool strong, Scratch& s) {
   const int n2 = 2 * n, L = 4 * n + 1;
-  const int log2 = ks_log2(n);
   // contour: bottom-left upward, corner, top left-to-right
   for (int i = threadIdx.x; i < L; i += blockDim.x) {
     int yy, xx, avail;
@@ -112,32 +118,60 @@ __device__ void code_block(const int* tab, const uint8_t* src, uint8_t* rec,
   }
   const int* rf = luma ? s.rf : s.ru;
   const int dc = ks_dc_value(s.ru, n);
-  int* res = s.buf0;
-  for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
-    const int y = p / n, x = p % n;
-    const int pv = ks_pred_pixel(tab, mode, n, luma, s.ru, rf, dc, y, x);
-    s.pred[p] = pv;
-    res[p] = (int)src[(y0 + y) * w + x0 + x] - pv;
-  }
-  __syncthreads();
-  int* coef = s.buf2;
-  ks_fwd_dct(tab, n, res, s.buf1, coef);
-  // quantise, store the level, dequantise in place
-  for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
-    const int c = coef[p];
-    int l = ks_quant_abs(tab, c < 0 ? -c : c, qp, log2);
-    if (c < 0) l = -l;
-    lev[(y0 + p / n) * w + x0 + p % n] = (int16_t)l;
-    coef[p] = ks_dequant(tab, l, qp, log2);
-  }
-  __syncthreads();
-  ks_inv_dct(tab, n, coef, s.buf1, res);
   for (int p = threadIdx.x; p < n * n; p += blockDim.x)
-    rec[(y0 + p / n) * w + x0 + p % n] =
-        (uint8_t)ks_clip3(0, 255, s.pred[p] + res[p]);
+    s.pred[p] = ks_pred_pixel(tab, mode, n, luma, s.ru, rf, dc, p / n, p % n);
   __syncthreads();
 }
 
+// Inverse transform of the dequantised block in s.buf2 and the
+// reconstruction pred + residual, clipped, into rec. Ends synchronised.
+__device__ void reconstruct_block(const int* tab, uint8_t* rec, int w,
+                                  int x0, int y0, int n, Scratch& s) {
+  ks_inv_dct(tab, n, s.buf2, s.buf1, s.buf0);
+  for (int p = threadIdx.x; p < n * n; p += blockDim.x)
+    rec[(y0 + p / n) * w + x0 + p % n] =
+        (uint8_t)ks_clip3(0, 255, s.pred[p] + s.buf0[p]);
+  __syncthreads();
+}
+
+// One n x n block of one plane, in place. K6 (kRecon false): residual of
+// src against the prediction, forward transform and quantisation; the
+// levels go to lev. K11 (kRecon true): the levels are read from lev and
+// src is unused. Both then dequantise, inverse-transform and reconstruct.
+template <bool kRecon>
+__device__ void run_block(const int* tab, const uint8_t* src, uint8_t* rec,
+                          int16_t* lev, int w, int h, int x0, int y0, int n,
+                          int expand, bool luma, int mode, int qp,
+                          unsigned al, unsigned ac, unsigned at, bool strong,
+                          Scratch& s) {
+  const int log2 = ks_log2(n);
+  predict_block(tab, rec, w, h, x0, y0, n, expand, luma, mode, al, ac, at,
+                strong, s);
+  int* coef = s.buf2;
+  if (kRecon) {
+    for (int p = threadIdx.x; p < n * n; p += blockDim.x)
+      coef[p] = ks_dequant(tab, lev[(y0 + p / n) * w + x0 + p % n], qp, log2);
+    __syncthreads();
+  } else {
+    int* res = s.buf0;
+    for (int p = threadIdx.x; p < n * n; p += blockDim.x)
+      res[p] = (int)src[(y0 + p / n) * w + x0 + p % n] - s.pred[p];
+    __syncthreads();
+    ks_fwd_dct(tab, n, res, s.buf1, coef);
+    // quantise, store the level, dequantise in place
+    for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
+      const int c = coef[p];
+      int l = ks_quant_abs(tab, c < 0 ? -c : c, qp, log2);
+      if (c < 0) l = -l;
+      lev[(y0 + p / n) * w + x0 + p % n] = (int16_t)l;
+      coef[p] = ks_dequant(tab, l, qp, log2);
+    }
+    __syncthreads();
+  }
+  reconstruct_block(tab, rec, w, x0, y0, n, s);
+}
+
+template <bool kRecon>
 __global__ void intra_level_kernel(
     const uint8_t* sy, const uint8_t* scb, const uint8_t* scr, uint8_t* ry,
     uint8_t* rcb, uint8_t* rcr, int16_t* ly, int16_t* lcb, int16_t* lcr,
@@ -150,14 +184,15 @@ __global__ void intra_level_kernel(
   const int n = r[RSIZE];
   const unsigned al = (unsigned)r[RAL], ac = (unsigned)r[RAC],
                  at = (unsigned)r[RAT];
-  code_block(tab, sy + oy, ry + oy, ly + oy, W, H, r[RX], r[RY], n, 1, true,
-             r[RMODE], r[RQP], al, ac, at, strong != 0, s);
-  code_block(tab, scb + oc, rcb + oc, lcb + oc, W / 2, H / 2, r[RX] / 2,
-             r[RY] / 2, n / 2, 2, false, r[RCMODE], r[RQPCB], al, ac, at,
-             false, s);
-  code_block(tab, scr + oc, rcr + oc, lcr + oc, W / 2, H / 2, r[RX] / 2,
-             r[RY] / 2, n / 2, 2, false, r[RCMODE], r[RQPCR], al, ac, at,
-             false, s);
+  run_block<kRecon>(tab, kRecon ? nullptr : sy + oy, ry + oy, ly + oy, W, H,
+                    r[RX], r[RY], n, 1, true, r[RMODE], r[RQP], al, ac, at,
+                    strong != 0, s);
+  run_block<kRecon>(tab, kRecon ? nullptr : scb + oc, rcb + oc, lcb + oc,
+                    W / 2, H / 2, r[RX] / 2, r[RY] / 2, n / 2, 2, false,
+                    r[RCMODE], r[RQPCB], al, ac, at, false, s);
+  run_block<kRecon>(tab, kRecon ? nullptr : scr + oc, rcr + oc, lcr + oc,
+                    W / 2, H / 2, r[RX] / 2, r[RY] / 2, n / 2, 2, false,
+                    r[RCMODE], r[RQPCR], al, ac, at, false, s);
 }
 
 }  // namespace
@@ -169,11 +204,27 @@ extern "C" int ks_intra_level(const void* sy, const void* scb,
                               int F, int H, int W, int strong,
                               void* stream) {
   if (kmax <= 0 || F <= 0) return 0;
-  intra_level_kernel<<<dim3(kmax, F), 256, 0, (cudaStream_t)stream>>>(
+  intra_level_kernel<false><<<dim3(kmax, F), 256, 0,
+                               (cudaStream_t)stream>>>(
       (const uint8_t*)sy, (const uint8_t*)scb, (const uint8_t*)scr,
       (uint8_t*)ry, (uint8_t*)rcb, (uint8_t*)rcr, (int16_t*)ly,
       (int16_t*)lcb, (int16_t*)lcr, (const int*)recs, (const int*)tab, kmax,
       H, W, strong);
+  return (int)cudaGetLastError();
+}
+
+// K11: levels (read only) -> reconstruction, one level of the schedule.
+extern "C" int ks_intra_recon_level(const void* ly, const void* lcb,
+                                    const void* lcr, void* ry, void* rcb,
+                                    void* rcr, const void* recs,
+                                    const void* tab, int kmax, int F, int H,
+                                    int W, int strong, void* stream) {
+  if (kmax <= 0 || F <= 0) return 0;
+  intra_level_kernel<true><<<dim3(kmax, F), 256, 0,
+                              (cudaStream_t)stream>>>(
+      nullptr, nullptr, nullptr, (uint8_t*)ry, (uint8_t*)rcb, (uint8_t*)rcr,
+      (int16_t*)ly, (int16_t*)lcb, (int16_t*)lcr, (const int*)recs,
+      (const int*)tab, kmax, H, W, strong);
   return (int)cudaGetLastError();
 }
 

@@ -4,14 +4,17 @@ ks265codec_tpu_torch.
 Same configuration (`EncoderConfig`), the same `encode_frame` / `flush`
 contract and the same `EncodedFrame` as ks265codec_tpu/encode/encoder.py,
 for the configurations the port covers: all-intra (`intra_period=1`),
-fixed QP, SAO off, the fast presets' tools. Per batch of frames it follows
-the reference's batched all-intra path (`_drain`'s all-intra branch,
-`_dispatch_intra_batch`, `_collect_intra_batch` and the IDR branch of
-`_encode_picture`):
+fixed QP, the fast presets' tools, SAO at any tier. Per batch of frames
+it follows the reference's batched all-intra path (`_drain`'s all-intra
+branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the IDR
+branch of `_encode_picture`):
   1. ops/decide.py      decision maps for the batch (K5),
   2. ops/wavefront.py   the level-scheduled intra coding scan (K6),
   3. ops/deblock.py     deblocking of the reconstruction (K7),
-  4. the native CABAC slice writer on the host.
+  4. ops/saostats.py    per-CTB SAO statistics against the sources (K8),
+  5. encode/sao.py      the SAO decision on the host (exact, float64),
+  6. ops/saoapply.py    SAO applied to the deblocked batch (K9),
+  7. the native CABAC slice writer on the host.
 Batches of 16/8/4/2/1 frames; the next batch is dispatched before the
 current one is entropy-coded, so the card codes batch N+1 while the host
 writes batch N. A one-frame batch goes through the same kernels. The
@@ -36,6 +39,8 @@ from ..hevc.params import PPS, SPS, VPS, VUI, ProfileTierLevel, write_pps, \
 from ..hevc.slicehdr import I_SLICE, SliceHeader, write_slice_header
 from ..ops.deblock import deblock_frames, intra_bs_maps
 from ..ops.decide import decide_frames
+from ..ops.saoapply import sao_apply_frames
+from ..ops.saostats import sao_stats_frames
 from ..ops.wavefront import WavefrontIntraCoder, code_intra_frames
 from ..utils.trace import stage
 from ..utils.yuv import LazyYUV, YUVFrame
@@ -43,6 +48,7 @@ from .config import RC_FIXQP, EncoderConfig, resolve_preset, tile_dims
 from .intra_frame import IntraFrameEncoder, decision_maps8, pad_plane, \
     tile_region_maps
 from .map_writer import write_slice_data
+from .sao import decide_from_stats_arrays, params_from_arrays
 
 
 @dataclass
@@ -70,7 +76,6 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
         (cfg.intra_period != 1, "inter coding (intra_period != 1)"),
         (cfg.rc != RC_FIXQP, "rate control other than fixed QP"),
         (cfg.pass_num != 0, "two-pass rate control"),
-        (cfg.sao > 0, "SAO (sao > 0)"),
         (bool(cfg.aq_mode), "adaptive quantisation (aq_mode)"),
         (bool(cfg.cutree), "CU-tree"),
         (bool(cfg.pcm), "PCM"),
@@ -174,7 +179,7 @@ class HevcEncoder:
         s.max_transform_hierarchy_depth_intra = 0
         s.scaling_list_enabled = 0
         s.amp_enabled = 1 if cfg.partitions >= 2 else 0
-        s.sao_enabled = 0
+        s.sao_enabled = 1 if cfg.sao > 0 else 0
         s.pcm_enabled = 0
         s.long_term_ref_pics_present = 1 if cfg.long_term_ref else 0
         s.temporal_mvp_enabled = 1 if cfg.tmvp else 0
@@ -283,8 +288,8 @@ class HevcEncoder:
         return out
 
     def _dispatch(self, items):
-        """Decide, code and deblock a batch on the device; the levels are
-        fetched in `_collect`."""
+        """Decide, code and deblock a batch on the device and take its SAO
+        statistics; the levels and statistics are fetched in `_collect`."""
         sps, pps, cfg = self.sps, self.pps, self.cfg
         dev = self.device
         ph = sps.pic_height_in_ctbs * sps.ctb_size
@@ -334,18 +339,44 @@ class HevcEncoder:
                 pps.beta_offset_div2, pps.tc_offset_div2, pps.cb_qp_offset,
                 pps.cr_qp_offset, sps.width, sps.height,
                 reference=self.reference)
-        return items, qp, batch, levels, recon
+        stats = None
+        if sps.sao_enabled:
+            # the preset's SAO tier caps what the decision can pick (ref
+            # ops/wavefront.py:825-842): tier <= 1 luma EO classes 0/1,
+            # tier 2 all luma EO classes, tier >= 3 adds band offset and
+            # both chroma planes
+            tier = max(int(cfg.sao), 1)
+            ncl, use_bo = (2 if tier <= 1 else 4), tier >= 3
+            planes = list(zip(recon, src, (0, 1, 1)))[:3 if use_bo else 1]
+            with stage("ai.sao_stats"):
+                stats = [sao_stats_frames(
+                    rec, s, sps.width >> sh, sps.height >> sh,
+                    sps.ctb_size >> sh, classes=ncl, bo=use_bo,
+                    reference=self.reference) for rec, s, sh in planes]
+        return items, qp, batch, levels, recon, stats
 
     def _collect(self, ctx) -> list[EncodedFrame]:
-        items, qp, batch, levels, recon = ctx
+        items, qp, batch, levels, recon, stats = ctx
+        sps = self.sps
         with stage("ai.fetch_levels"):
             cy, ccb, ccr = (lv.cpu().numpy() for lv in levels)
+        sao_arr = [None] * len(items)
+        if stats is not None:
+            with stage("ai.sao_decide_host"):
+                sao_arr = sao_decisions(stats, qp, max(self.cfg.sao, 1))
+            with stage("ai.sao_apply"):
+                prm = [torch.from_numpy(np.stack([a[k] for a in sao_arr]))
+                       .to(self.device) for k in range(4)]
+                recon = sao_apply_frames(
+                    *recon, *prm, True, True, sps.width, sps.height,
+                    sps.ctb_size, reference=self.reference)
         return [self._encode_picture(frame, di, qp, batch[f], cy[f], ccb[f],
-                                     ccr[f], recon, f)
+                                     ccr[f], recon, f, sao_arr[f])
                 for f, (di, frame) in enumerate(items)]
 
     def _encode_picture(self, frame, display_idx: int, qp: int, maps,
-                        cy, ccb, ccr, recon, fidx: int) -> EncodedFrame:
+                        cy, ccb, ccr, recon, fidx: int,
+                        sao_arrays=None) -> EncodedFrame:
         """Entropy-code one IDR picture from its maps and levels."""
         cfg, sps, pps = self.cfg, self.sps, self.pps
         hdr = SliceHeader(nal_type=NalType.IDR_W_RADL, temporal_id=0,
@@ -356,17 +387,24 @@ class HevcEncoder:
         hdr.deblocking_filter_disabled = pps.deblocking_filter_disabled
         hdr.beta_offset_div2 = pps.beta_offset_div2
         hdr.tc_offset_div2 = pps.tc_offset_div2
+        if sps.sao_enabled:
+            hdr.sao_luma = 1
+            hdr.sao_chroma = 1
         fs = self._fs
         fs.reset(sps)
         enc = IntraFrameEncoder(fs, sps, pps, hdr)
         enc.apply_coded_planes(maps["log2m"], maps["modes8"],
                                maps["cmodes8"], maps["qp_map8"], cy, ccb,
                                ccr)
+        # the decision arrays were applied on the device in _collect; the
+        # slice writer codes them as each CTB's sao() syntax
+        sao_params = (None if sao_arrays is None
+                      else params_from_arrays(fs, *sao_arrays))
         nthreads = (cfg.threads if cfg.threads > 0
                     else min(os.cpu_count() or 1, 8))
         with stage("enc.write_slice"):
             slice_data, raw_entries = write_slice_data(
-                fs, enc.syn, sps, pps, hdr, None, threads=nthreads)
+                fs, enc.syn, sps, pps, hdr, sao_params, threads=nthreads)
         if pps.entropy_coding_sync_enabled or pps.tiles_enabled:
             hdr.num_entry_points = len(raw_entries)
             hdr.entry_points = list(raw_entries)
@@ -431,6 +469,21 @@ class HevcEncoder:
                     v[y0 // 2:y1 // 2, x0 // 2:x1 // 2])
 
         return LazyYUV(fetch, poc=0)
+
+
+def sao_decisions(stats, qp: int, tier: int) -> list:
+    """The host SAO decision for each frame of a batch: stats holds, per
+    plane that was measured (luma, or all three from tier 3 on), the K8
+    tensors (eo_cnt, eo_err, bo_cnt, bo_err) of the batch. Returns per
+    frame the (type, offsets, band position, EO class) arrays of
+    encode/sao.py::decide_from_stats_arrays."""
+    host = [[None if a is None else a.cpu().numpy() for a in st]
+            for st in stats]
+    n = len(host[0][0])
+    pad = [None] * (3 - len(host))        # planes the tier never reads
+    return [decide_from_stats_arrays(
+        [tuple(None if a is None else a[f] for a in st) for st in host] + pad,
+        qp, tier) for f in range(n)]
 
 
 def _psnr(a: YUVFrame, b) -> tuple[float, float, float]:

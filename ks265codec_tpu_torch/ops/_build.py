@@ -38,6 +38,9 @@ _SIGNATURES = {
     "ks_decide_split": [_P] * 7 + [_I] * 3 + [_P],
     "ks_intra_level": [_P] * 11 + [_I] * 5 + [_P],
     "ks_deblock_edges": [_P] * 6 + [_I] * 10 + [_P],
+    "ks_intra_recon_level": [_P] * 8 + [_I] * 5 + [_P],
+    "ks_sao_stats": [_P] * 6 + [_I] * 8 + [_P],
+    "ks_sao_apply": [_P] * 6 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Intra coding scan (K6): predict -> forward DCT -> quant -> dequant ->
 inverse DCT -> reconstruction for every CU of a batch of intra frames, one
-dependency level at a time.
+dependency level at a time; and its decoder twin (K11): predict ->
+dequant -> inverse DCT -> reconstruction from parsed levels.
 
-Counterpart of ks265codec_tpu/ops/wavefront.py::_code_intra_frame_core
+Counterparts of ks265codec_tpu/ops/wavefront.py::_code_intra_frame_core
 (`_process_class`, `_refs_from_borders`, `_update_bottom/_update_right`),
-for the fast presets (no RDOQ, no sign hiding). The host side is a copy of
+for the fast presets (no RDOQ, no sign hiding), and of
+`_recon_intra_frame_core` (`_recon_class`). The host side is a copy of
 `WavefrontIntraCoder` (native schedule build, level packing): the native
 `ks_build_intra_schedule` walks every frame in z-order, records each CU's
 reference availability at 4-sample-group granularity (tile walls
@@ -17,9 +19,10 @@ scatters), both versions here read neighbour samples straight from the
 reconstruction planes; they read the same values because the schedule
 guarantees the neighbours are final.
 
-CUDA: csrc/intra_scan.cu, one launch per level, one thread block per
-scheduled CU (luma 8/16/32 plus its two chroma blocks), frame on
-blockIdx.y. The plain version runs the same arithmetic level by level.
+CUDA: csrc/intra_scan.cu, one launch per level (`ks_intra_level` codes,
+`ks_intra_recon_level` reconstructs), one thread block per scheduled CU
+(luma 8/16/32 plus its two chroma blocks), frame on blockIdx.y. The plain
+versions run the same arithmetic level by level.
 """
 
 from __future__ import annotations
@@ -204,34 +207,32 @@ def _refs(plane: torch.Tensor, f, x, y, al, ac, at, n: int, expand: int,
     return refs_u, refs_f
 
 
-def _code_blocks(src, rec, lev, f, x, y, modes, qp, al, ac, at, n: int,
-                 expand: int, is_luma: bool, strong: bool) -> None:
-    """Code K blocks of one plane in place: rec (F, H, W) uint8 and lev
-    (F, H, W) int16 receive the blocks' reconstruction and levels."""
+def _blocks(src, rec, lev, f, x, y, modes, qp, al, ac, at, n: int,
+            expand: int, is_luma: bool, strong: bool) -> None:
+    """K blocks of one plane in place, rec (F, H, W) uint8 and lev
+    (F, H, W) int16. With a source plane (K6) the blocks are coded and
+    lev receives their levels; with src None (K11) their levels are read
+    from lev. rec receives the reconstruction."""
     refs_u, refs_f = _refs(rec, f, x, y, al, ac, at, n, expand, is_luma,
                            strong)
     pred = tintra.predict_mode(refs_u, refs_f, modes, n, is_luma)
-    d = torch.arange(n, device=src.device)
+    d = torch.arange(n, device=rec.device)
     fy = f[:, None, None]
     yy = (y[:, None] + d)[:, :, None]
     xx = (x[:, None] + d)[:, None, :]
-    resi = src[fy, yy, xx].to(torch.int32) - pred
-    levels = fwd_quant(resi, qp, n)
+    if src is None:
+        levels = lev[fy, yy, xx].to(torch.int32)
+    else:
+        levels = fwd_quant(src[fy, yy, xx].to(torch.int32) - pred, qp, n)
+        lev[fy, yy, xx] = levels.to(lev.dtype)
     r = (pred + dequant_itx(levels, qp, n)).clamp(0, 255)
     rec[fy, yy, xx] = r.to(rec.dtype)
-    lev[fy, yy, xx] = levels.to(lev.dtype)
 
 
-def code_intra_frames_plain(src_y, src_cb, src_cr, sched: LevelSchedule,
-                            strong: bool):
-    """Plain PyTorch version of the scan. Sources (F, H, W) and
-    (F, H/2, W/2) uint8 on one device; sched already on that device.
-    Returns (rec_y, rec_cb, rec_cr) uint8 and (lev_y, lev_cb, lev_cr)
-    int16 planes; cells no CU covers stay 0."""
-    recs = [torch.zeros_like(p) for p in (src_y, src_cb, src_cr)]
-    levs = [torch.zeros(p.shape, dtype=torch.int16, device=p.device)
-            for p in (src_y, src_cb, src_cr)]
+def _scan_plain(srcs, recs, levs, sched: LevelSchedule, strong: bool):
+    """The level-by-level walk of both plain versions (srcs None: K11)."""
     F = sched.n_frames
+    srcs = srcs or (None, None, None)
     for li in range(len(sched.levels)):
         lvl = sched.level(li)                             # (F, kmax, 12)
         kmax = lvl.shape[1]
@@ -241,15 +242,39 @@ def code_intra_frames_plain(src_y, src_cb, src_cr, sched: LevelSchedule,
             if not bool(sel.any()):
                 continue
             r, f = lvl[sel], fidx[sel]
-            _code_blocks(src_y, recs[0], levs[0], f, r[:, X], r[:, Y],
-                         r[:, MODE], r[:, QP], r[:, AL], r[:, AC], r[:, AT],
-                         n, 1, True, strong)
+            _blocks(srcs[0], recs[0], levs[0], f, r[:, X], r[:, Y],
+                    r[:, MODE], r[:, QP], r[:, AL], r[:, AC], r[:, AT], n, 1,
+                    True, strong)
             for c, qf in ((1, QPCB), (2, QPCR)):
-                _code_blocks((src_y, src_cb, src_cr)[c], recs[c], levs[c], f,
-                             r[:, X] >> 1, r[:, Y] >> 1, r[:, CMODE],
-                             r[:, qf], r[:, AL], r[:, AC], r[:, AT],
-                             n // 2, 2, False, False)
+                _blocks(srcs[c], recs[c], levs[c], f, r[:, X] >> 1,
+                        r[:, Y] >> 1, r[:, CMODE], r[:, qf], r[:, AL],
+                        r[:, AC], r[:, AT], n // 2, 2, False, False)
+
+
+def code_intra_frames_plain(src_y, src_cb, src_cr, sched: LevelSchedule,
+                            strong: bool):
+    """Plain PyTorch version of the scan. Sources (F, H, W) and
+    (F, H/2, W/2) uint8 on one device; sched already on that device.
+    Returns (rec_y, rec_cb, rec_cr) uint8 and (lev_y, lev_cb, lev_cr)
+    int16 planes; cells no CU covers stay 0."""
+    srcs = (src_y, src_cb, src_cr)
+    recs = [torch.zeros_like(p) for p in srcs]
+    levs = [torch.zeros(p.shape, dtype=torch.int16, device=p.device)
+            for p in srcs]
+    _scan_plain(srcs, recs, levs, sched, strong)
     return tuple(recs), tuple(levs)
+
+
+def recon_intra_frames_plain(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
+                             strong: bool):
+    """Plain PyTorch version of K11. Levels (F, H, W) and (F, H/2, W/2)
+    int16 on one device; sched already on that device. Returns the
+    (rec_y, rec_cb, rec_cr) uint8 planes; cells no CU covers stay 0."""
+    levs = (lev_y, lev_cb, lev_cr)
+    recs = [torch.zeros(p.shape, dtype=torch.uint8, device=p.device)
+            for p in levs]
+    _scan_plain(None, recs, levs, sched, strong)
+    return tuple(recs)
 
 
 # ------------------------------------------------------------- CUDA kernel
@@ -279,6 +304,45 @@ def code_intra_frames_cuda(src_y, src_cb, src_cr, sched: LevelSchedule,
         _build.check(rc, "ks_intra_level")
         _build.count("intra_level")
     return tuple(recs), tuple(levs)
+
+
+def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
+                            strong: bool, tables: torch.Tensor):
+    """K11 on the card: one launch of `ks_intra_recon_level` per level."""
+    for t in (lev_y, lev_cb, lev_cr):
+        if t.dtype != torch.int16 or not t.is_cuda:
+            raise ValueError("levels must be int16 CUDA tensors")
+    F, H, W = lev_y.shape
+    if lev_cb.shape != (F, H // 2, W // 2) or lev_cr.shape != lev_cb.shape:
+        raise ValueError("chroma planes must be (F, H/2, W/2)")
+    levs = [t.contiguous() for t in (lev_y, lev_cb, lev_cr)]
+    lib = _build.kernels()
+    recs = [torch.zeros(p.shape, dtype=torch.uint8, device=p.device)
+            for p in levs]
+    rec_t = sched.recs.contiguous()
+    st = _build.stream(lev_y.device)
+    P = _build.ptr
+    for base, kmax in sched.levels:
+        rc = lib.ks_intra_recon_level(
+            P(levs[0]), P(levs[1]), P(levs[2]), P(recs[0]), P(recs[1]),
+            P(recs[2]), ctypes.c_void_p(rec_t.data_ptr() + base * NFIELDS * 4),
+            P(tables), kmax, F, H, W, int(strong), st)
+        _build.check(rc, "ks_intra_recon_level")
+        _build.count("intra_recon")
+    return tuple(recs)
+
+
+def recon_intra_frames(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
+                       strong: bool, reference: bool = False):
+    """Intra reconstruction of a batch from parsed levels. CUDA tensors
+    launch the kernel; CPU tensors, or reference=True, run
+    `recon_intra_frames_plain`."""
+    sched = sched.to(lev_y.device)
+    if lev_y.device.type != "cuda" or reference:
+        return recon_intra_frames_plain(lev_y, lev_cb, lev_cr, sched, strong)
+    from ..interop import device_tables
+    return recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched, strong,
+                                   device_tables(lev_y.device))
 
 
 def code_intra_frames(src_y, src_cb, src_cr, sched: LevelSchedule,

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes chip_smoke.py does not cover (odd picture sizes, QP 0 and
-51, deblock offsets). Marked `cuda`: they skip where torch finds no CUDA
+51, deblock offsets, SAO on chroma only, sparse random levels), and the
+encoder and decoder on the kernels against themselves on the plain
+versions. Marked `cuda`: they skip where torch finds no CUDA
 device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -10,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from ks265codec_tpu_torch.decode.decoder import HevcDecoder
 from ks265codec_tpu_torch.encode.config import EncoderConfig
 from ks265codec_tpu_torch.encode.encoder import HevcEncoder, encode_sequence
 from ks265codec_tpu_torch.encode.intra_frame import (decision_maps8,
@@ -18,7 +21,10 @@ from ks265codec_tpu_torch.encode.intra_frame import (decision_maps8,
 from ks265codec_tpu_torch.interop import device_tables
 from ks265codec_tpu_torch.ops import deblock as tdb
 from ks265codec_tpu_torch.ops import decide as tdec
+from ks265codec_tpu_torch.ops import saoapply as tsa
+from ks265codec_tpu_torch.ops import saostats as tss
 from ks265codec_tpu_torch.ops import wavefront as twf
+from ks265codec_tpu_torch.utils.md5 import frame_md5
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +134,103 @@ def test_encoder_kernels_match_plain(dev):
     b, _ = encode_sequence(frames, EncoderConfig(**cfg), device=dev,
                            reference=True)
     assert a == b
+
+
+def _planes(rng, F, h, w):
+    yy, xx = np.mgrid[0:h, 0:w]
+    p = 128 + 70 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    p = np.round(p / 6) * 6 + rng.randint(-3, 4, (F, h, w))
+    return np.clip(p, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("classes,bo", [(2, False), (4, True)])
+@pytest.mark.parametrize("plane", ["luma", "chroma"])
+def test_sao_stats_kernel_matches_plain(dev, classes, bo, plane):
+    """A 200x120 picture on a 256x128 CTB grid (padded planes), so the
+    right CTB column is mostly outside the picture."""
+    rng = np.random.RandomState(classes + len(plane))
+    s = 0 if plane == "luma" else 1
+    rec = _planes(rng, 3, 128 >> s, 256 >> s)
+    src = np.clip(rec.astype(int) + rng.randint(-9, 10, rec.shape), 0, 255)
+    r, x = (torch.from_numpy(a.astype(np.uint8)).to(dev) for a in (rec, src))
+    args = (200 >> s, 120 >> s, 64 >> s, classes, bo)
+    got = tss.sao_stats_frames_cuda(r, x, *args)
+    want = tss.sao_stats_frames_plain(r, x, *args)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sao_luma,sao_chroma", [(True, True), (False, True),
+                                                 (True, False)])
+def test_sao_apply_kernel_matches_plain(dev, sao_luma, sao_chroma):
+    rng = np.random.RandomState(5)
+    F, H, W = 2, 128, 256
+    planes = [torch.from_numpy(_planes(rng, F, h, w)).to(dev)
+              for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2))]
+    grid = (F, 3, H // 64, W // 64)
+    prm = [torch.from_numpy(a.astype(np.int8)).to(dev) for a in (
+        rng.randint(0, 3, grid), rng.randint(-7, 8, grid + (4,)),
+        rng.randint(0, 32, grid), rng.randint(0, 4, grid))]
+    args = (sao_luma, sao_chroma, 200, 120, 64)
+    got = tsa.sao_apply_frames_cuda(*planes, *prm, *args)
+    want = tsa.sao_apply_frames_plain(*planes, *prm, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("qp", [0, 51])
+@pytest.mark.parametrize("tiles", ["", "3x2"])
+def test_intra_recon_kernel_matches_plain(dev, qp, tiles):
+    """K11 from sparse random levels at QP 0 and 51 on a 200x120 picture,
+    with and without tiles."""
+    enc = HevcEncoder(EncoderConfig(width=200, height=120, preset="ultrafast",
+                                    intra_period=1, tiles=tiles), device=dev)
+    sps, pps = enc.sps, enc.pps
+    rng = np.random.RandomState(qp + len(tiles))
+    ph = sps.pic_height_in_ctbs * sps.ctb_size
+    pw = sps.pic_width_in_ctbs * sps.ctb_size
+    h8, w8 = ph >> 3, pw >> 3
+    _, tile8, _ = tile_region_maps(pps, sps)
+    batch = []
+    for f in range(2):
+        log2m, modes8, cmodes8 = decision_maps8(
+            rng.rand(ph // 32, pw // 32) < 0.5,
+            rng.rand(ph // 16, pw // 16) < 0.5, rng.randint(0, 35, (h8, w8)),
+            rng.randint(0, 35, (ph // 16, pw // 16)),
+            rng.randint(0, 35, (ph // 32, pw // 32)), sps, h8, w8)
+        batch.append(dict(log2m=log2m, modes8=modes8, cmodes8=cmodes8,
+                          qp_map8=np.full(log2m.shape, qp, np.uint8),
+                          tile8=tile8))
+    sched = twf.WavefrontIntraCoder().pack(batch, 3, -2, sps).to(dev)
+
+    def lev(h, w):
+        mag = rng.geometric(0.3, (2, h, w)) * rng.choice([-1, 1], (2, h, w))
+        return torch.from_numpy(np.where(rng.rand(2, h, w) < 0.05, mag, 0)
+                                .astype(np.int16)).to(dev)
+
+    levels = (lev(ph, pw), lev(ph // 2, pw // 2), lev(ph // 2, pw // 2))
+    got = twf.recon_intra_frames_cuda(*levels, sched, True, device_tables(dev))
+    want = twf.recon_intra_frames_plain(*levels, sched, True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_sao_encode_and_decode_kernels_match_plain(dev):
+    """SAO tier 4 without tiles: the kernels' stream equals the plain
+    versions', and the card's decoder reproduces the encoder's recon with
+    every picture through its fast path, as the plain decoder does."""
+    frames = [YUVFrame(*f, poc=i) for i, f in enumerate(_frames(3, 200, 120,
+                                                                13))]
+    cfg = dict(width=200, height=120, preset="ultrafast", qp=30,
+               intra_period=1, sao=4)
+    a, recons = encode_sequence(frames, EncoderConfig(**cfg), device=dev)
+    b, _ = encode_sequence(frames, EncoderConfig(**cfg), device=dev,
+                           reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in recons]
+    for reference in (False, True):
+        dec = HevcDecoder(device=dev, reference=reference)
+        assert [frame_md5(f) for f in dec.decode_all(a)] == want
+        assert dec.fast_pictures == len(frames)

@@ -1,8 +1,9 @@
-"""The slice end to end: 4 all-intra frames at 192x128 (ultrafast, QP 27,
-SAO off) through the port's HevcEncoder on the CPU must give the same
-bitstream as ks265codec_tpu's HevcEncoder, byte for byte, with and without
-tiles; the JAX decoder must decode the port's stream to frames whose md5
-equals the port's reconstruction."""
+"""The all-intra encode end to end: 4 frames at 192x128 (ultrafast, QP 27,
+SAO off; tests/test_torch_sao.py covers SAO on) through the port's
+HevcEncoder on the CPU must give the same bitstream as ks265codec_tpu's
+HevcEncoder, byte for byte, with and without tiles; the JAX decoder must
+decode the port's stream to frames whose md5 equals the port's
+reconstruction."""
 
 import numpy as np
 import pytest
@@ -94,7 +95,7 @@ def test_batches_and_pipelining_do_not_change_bytes():
 @pytest.mark.parametrize("overrides,missing", [
     (dict(intra_period=32), "inter coding"),
     (dict(rc=1, bitrate_kbps=500), "rate control"),
-    (dict(sao=1), "SAO"),
+    (dict(ssim=1), "SSIM"),
     (dict(aq_mode=1), "adaptive quantisation"),
     (dict(pcm=True), "PCM"),
     (dict(slices=2, tiles=""), "multiple slices"),

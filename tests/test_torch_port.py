@@ -24,7 +24,8 @@ HOST_COPIES = [
     "hevc/slicehdr.py", "hevc/sei.py", "native/__init__.py",
     "native/cabac.c", "decode/recon.py", "decode/slice_dec.py",
     "encode/config.py", "encode/map_writer.py", "encode/sbac.py",
-    "utils/yuv.py", "utils/trace.py",
+    "utils/yuv.py", "utils/trace.py", "encode/sao.py", "utils/log.py",
+    "decode/filters.py", "utils/pool.py", "utils/md5.py", "cli/__init__.py",
 ]
 
 

@@ -1,14 +1,17 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Encodes the chip_smoke.py main path (1280x720, ultrafast, QP 27,
-all-intra, tiles 8x6, SAO off, 32 synthetic frames) three times after a
-warm-up: once plain for the fps, once with the encoder's stage trace on
-(host wall time per stage: upload, decide, code, deblock, level fetch,
-slice writing), once under torch.profiler for the device time of every
-kernel and the device's busy share of the wall time, and once under
-cProfile for the host functions that take the wall time (cProfile slows
-Python calls, so its times are shares, not the plain run's). Run from
-the repository root:
+Two runs, each profiled the same way after a warm-up: the encode of the
+chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
+QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames)
+and the decode of the stream it writes. Each is run once plain for the
+fps, once with the stage trace on (host wall time per stage: for the
+encode upload, decide, code, deblock, SAO statistics, the host SAO
+decision, SAO apply, level fetch and slice writing; for the decode the
+reconstruction, deblocking and SAO of the fast path), once under
+torch.profiler for the device time of every kernel and the device's busy
+share of the wall time, and once under cProfile for the host functions
+that take the wall time (cProfile slows Python calls, so its times are
+shares, not the plain run's). Run from the repository root:
 
     python3 tools/torch_main_path_profile.py
 """
@@ -29,6 +32,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import synth_frames  # noqa: E402
+from ks265codec_tpu_torch.decode.decoder import HevcDecoder  # noqa: E402
 from ks265codec_tpu_torch.encode.config import EncoderConfig  # noqa: E402
 from ks265codec_tpu_torch.encode.encoder import HevcEncoder  # noqa: E402
 from ks265codec_tpu_torch.utils import trace  # noqa: E402
@@ -37,14 +41,69 @@ from ks265codec_tpu_torch.utils.yuv import YUVFrame  # noqa: E402
 
 def encode(frames):
     enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="ultrafast",
-                                    qp=27, intra_period=1, tiles="8x6",
-                                    sao=0))
+                                    qp=27, intra_period=1, tiles="8x6"))
     out = []
     for f in frames:
         out += enc.encode_frame(f)
     out += enc.flush()
     torch.cuda.synchronize()
     return out
+
+
+def decode(stream):
+    out = HevcDecoder().decode_all(stream)
+    torch.cuda.synchronize()
+    return out
+
+
+def profile(label: str, fn, n: int) -> None:
+    """Plain, traced, torch.profiler and cProfile runs of fn() (which
+    handles n frames); fn() has been called once to warm up."""
+    t0 = time.perf_counter()
+    fn()
+    wall = time.perf_counter() - t0
+    print(f"{label} plain run: {n} frames in {wall:.3f} s = "
+          f"{n / wall:.3f} fps")
+
+    trace.enabled = True
+    trace.reset()
+    t0 = time.perf_counter()
+    fn()
+    traced = time.perf_counter() - t0
+    trace.enabled = False
+    print(f"{label} traced run: {traced:.3f} s wall; host stage totals "
+          "(s, count):")
+    for line in trace.report().splitlines():
+        print("  " + line)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        prof_wall = time.perf_counter() - t0
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name][0] += ev.device_time_total / 1e3   # ms
+            per_kernel[ev.name][1] += 1
+    busy = sum(v[0] for v in per_kernel.values())
+    print(f"{label} profiled run: {prof_wall:.3f} s wall, device busy "
+          f"{busy:.3f} ms ({100 * busy / 1e3 / prof_wall:.2f}% of wall; "
+          "idle share is the rest); device time by kernel (ms, launches):")
+    for name, (ms, k) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:10.3f}  {k:5d}  {name[:90]}")
+    if not per_kernel:
+        print("  no device events recorded: device time not measured")
+
+    prof_host = cProfile.Profile()
+    prof_host.enable()
+    fn()
+    prof_host.disable()
+    buf = io.StringIO()
+    pstats.Stats(prof_host, stream=buf).sort_stats("tottime").print_stats(15)
+    print(f"{label} cProfile run, top 15 host functions by own time:")
+    print(buf.getvalue().split("\n", 4)[-1].rstrip())
 
 
 def main() -> int:
@@ -54,55 +113,13 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
+    print(f"card: {card}")
     frames = [YUVFrame(y, u, v, poc=i)
               for i, (y, u, v) in enumerate(synth_frames(32))]
-    encode(frames)                                   # warm-up + build
-    t0 = time.perf_counter()
-    encode(frames)
-    wall = time.perf_counter() - t0
-    print(f"card: {card}")
-    print(f"plain run: {len(frames)} frames in {wall:.3f} s = "
-          f"{len(frames) / wall:.3f} fps")
-
-    trace.enabled = True
-    trace.reset()
-    t0 = time.perf_counter()
-    encode(frames)
-    traced = time.perf_counter() - t0
-    trace.enabled = False
-    print(f"traced run: {traced:.3f} s wall; host stage totals "
-          "(s, count):")
-    for line in trace.report().splitlines():
-        print("  " + line)
-
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        encode(frames)
-        prof_wall = time.perf_counter() - t0
-    per_kernel = defaultdict(lambda: [0.0, 0])
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[ev.name][0] += ev.device_time_total / 1e3   # ms
-            per_kernel[ev.name][1] += 1
-    busy = sum(v[0] for v in per_kernel.values())
-    print(f"profiled run: {prof_wall:.3f} s wall, device busy "
-          f"{busy:.3f} ms ({100 * busy / 1e3 / prof_wall:.2f}% of wall; "
-          "idle share is the rest); device time by kernel (ms, launches):")
-    for name, (ms, n) in sorted(per_kernel.items(), key=lambda kv: -kv[1][0]):
-        print(f"  {ms:10.3f}  {n:5d}  {name[:90]}")
-    if not per_kernel:
-        print("  no device events recorded: device time not measured")
-
-    prof_host = cProfile.Profile()
-    prof_host.enable()
-    encode(frames)
-    prof_host.disable()
-    buf = io.StringIO()
-    pstats.Stats(prof_host, stream=buf).sort_stats("tottime").print_stats(15)
-    print("cProfile run, top 15 host functions by own time:")
-    print(buf.getvalue().split("\n", 4)[-1].rstrip())
+    stream = b"".join(e.data for e in encode(frames))   # warm-up + build
+    profile("encode", lambda: encode(frames), len(frames))
+    decode(stream)                                      # warm-up
+    profile("decode", lambda: decode(stream), len(frames))
     return 0
 
 
