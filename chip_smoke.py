@@ -16,7 +16,15 @@ port's package is not beside it. Phases, each printed as one line:
      reconstruction from K6's levels (equal to the plain version AND to
      K6's reconstruction, tiles 8x6 and none), with
      CUDA-event medians of the kernel and of the plain version and the
-     least time the card could take (bound);
+     least time the card could take (bound); then, on the inputs the
+     low-delay P path gives them for its first P picture (frame 1
+     against the IDR of frame 0, recorded by wrapping the op functions
+     during a 2-frame encode): K12 lookahead (downsample, the four
+     feature maps and the packed head), K13 motion search (motion and
+     costs), K15 inter decision (both decision iterations and every
+     merge-snap call), K14 MC (equal to the plain version and to the
+     prediction K17 builds) and K17 inter coding (recon, levels and
+     prediction, with the seeded K6 scan and K7);
   4. the main path: HevcEncoder with bench.py's configuration (1280x720,
      ultrafast, QP 27, all-intra, tiles 8x6, SAO from the preset) on 32
      frames, once to warm up and once timed with the launch counts reset
@@ -31,11 +39,20 @@ port's package is not beside it. Phases, each printed as one line:
      pictures decode the same with reference=True;
   6. the SAO-off encode (4 frames): K5, K6 and K7 launched, kernel
      stream == plain stream;
-  7. the CLIs: app_encoder on 8 frames of a .yuv launches every encode
-     kernel and writes HevcEncoder's bytes, and app_decoder -md5 1
-     launches K11, K7 and K9 and prints the encoder's md5s.
+  7. the low-delay P path (BASELINE.json config 2 with SAO off:
+     ultrafast, zerolatency, QP 30, intra_period 0): 8 frames on the
+     kernels give the plain versions' stream and recons; then, after a
+     warm-up, one timed 24-frame encode (bench.py's INTER_FRAMES) with
+     the launch counts reset just before: K5, K6, K7, K12, K13, K15, K14
+     and K17 must have launched, luma PSNR > 30 dB;
+  8. the CLIs: app_encoder on 8 frames of a .yuv launches every encode
+     kernel and writes HevcEncoder's bytes, app_decoder -md5 1 launches
+     K11, K7 and K9 and prints the encoder's md5s, and app_encoder with
+     -latency zerolatency -iper 0 -sao 0 on 4 frames launches the inter
+     kernels and writes HevcEncoder's bytes.
 The line before the last is the JSON kernel table with the main path's
-encode and decode fps; the last line is the device JSON. Nothing here
+encode and decode fps and the low-delay P path's fps; the last line is
+the device JSON. Nothing here
 imports jax or ks265codec_tpu.
 """
 
@@ -57,6 +74,9 @@ import numpy as np
 import torch
 
 W, H, FRAMES = 1280, 720, 32
+INTER_FRAMES = 24       # bench.py's inter leg
+INTER_ROWS = ("lookahead", "motion_search", "inter_decide", "inter_mc",
+              "inter_code")
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
 # SMs x 64 INT32 lanes per SM (Hopper SM) x 1.98 GHz boost clock, the clock
 # behind the data sheet's 67 TFLOP/s FP32 (128 FP32 lanes, FMA as 2). The
@@ -117,9 +137,232 @@ def max_abs_err(a, b) -> float:
     for x, y in pairs:
         if x.shape != y.shape:
             raise AssertionError(f"shape {tuple(x.shape)} != {tuple(y.shape)}")
-        d = (x.double() - y.double()).abs()
+        x, y = x.detach().cpu().double(), y.detach().cpu().double()
+        d = torch.where(x == y, 0.0, (x - y).abs())     # equal infinities
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
+
+
+def mc_ops(mv, n: int, luma: bool):
+    """Multiply-adds that separable MC of an n x n block needs for motion
+    mv (..., 2) [x, y] (quarter-pel luma, eighth-pel chroma): the
+    horizontal pass covers the taps - 1 extra rows the vertical pass reads
+    only where the vertical phase is fractional, and a pass at phase 0 is a
+    pick, one operation a sample. Returns a tensor of mv's leading shape."""
+    taps, frac = (8, 3) if luma else (4, 7)
+    mv = mv.detach().cpu().long()
+    fx, fy = (mv[..., 0] & frac) > 0, (mv[..., 1] & frac) > 0
+    return ((n + (taps - 1) * fy.long()) * n * torch.where(fx, taps, 1)
+            + n * n * torch.where(fy, taps, 1))
+
+
+def rough_ops(mv, n: int):
+    """Operations of one uni-predicted motion's rough cost at CU size n
+    (K15's `rough_cu`): luma and both chroma MC, then per sample the
+    residual, the forward transform (2 stages of t multiply-adds, matrix
+    form, t the TU size) and about 10 for quantisation, dequantisation,
+    error and level bits."""
+    t, tc = min(n, 32), min(n // 2, 16)
+    return (mc_ops(mv, n, True) + 2 * mc_ops(mv, n // 2, False)
+            + n * n * (2 * t + 11) + 2 * (n // 2) ** 2 * (2 * tc + 11))
+
+
+def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
+    """K12, K13, K15, K17 and K14 against their plain versions on the
+    recorded inputs of the first P picture; returns their table rows."""
+    from ks265codec_tpu_torch.ops import intercode as tic
+    from ks265codec_tpu_torch.ops import interdecide as tid
+    from ks265codec_tpu_torch.ops import lookahead as tla
+    from ks265codec_tpu_torch.ops import me2
+    from ks265codec_tpu_torch.ops.mc import mc_planes_plain
+    rows = {}
+
+    def row(name, source, replaces, err, ms, plain, nbytes, ops, counters,
+            required=None):
+        bnd, by = bound_ms(nbytes, ops)
+        rows[name] = dict(name=name, route="cuda",
+                          source=f"ks265codec_tpu_torch/csrc/{source}",
+                          replaces=f"ks265codec_tpu/{replaces}",
+                          max_abs_err=err, ms=ms, plain_ms=plain,
+                          bound_ms=bnd, bound_by=by, library_ms=None,
+                          counters=counters,
+                          required=required or counters)
+        return bnd, by
+
+    # K12: the downsample of frame 1 and its features against frame 0
+    cur, prev = calls["frame_features_batch"][-1][0][:2]
+    y1 = torch.from_numpy(np.ascontiguousarray(yuv[1].y)).to(dev)[None]
+    dk, dp = tla.downsample2x_cuda(y1), tla.downsample2x_plain(y1)
+    fk = tla.features_cuda(cur, prev)
+    fp = tla.features_plain(cur, prev)
+    torch.cuda.synchronize()
+    if not torch.equal(dk, dp) or not all(torch.equal(a, b)
+                                          for a, b in zip(fk, fp)):
+        raise AssertionError("K12 lookahead: kernel and plain differ")
+    pk = tla.frame_features_batch(cur, prev)
+    pp = tla.frame_features_batch(cur, prev, reference=True)
+    if not torch.equal(pk, pp):
+        raise AssertionError("K12 lookahead: packed heads differ")
+    ms = cuda_ms(lambda: (tla.downsample2x_cuda(y1),
+                          tla.features_cuda(cur, prev)))
+    plain = cuda_ms(lambda: (tla.downsample2x_plain(y1),
+                             tla.features_plain(cur, prev)), warm=False)
+    nb = cur[0].numel() // 64
+    # bytes: the frame in, the half frame out, both half planes and the 4
+    # maps; operations: 289 offsets x 64 samples x 3 (sub, abs, add) and
+    # the 4 intra modes, per 8x8 half-res block, and 4 per downsampled
+    # sample
+    bnd, by = row("lookahead", "lookahead.cu", "ops/lookahead.py:99",
+                  max(max_abs_err(dk, dp), max_abs_err(list(fk), list(fp))),
+                  ms, plain, y1.numel() * 1.25 + 2 * cur.numel()
+                  + 16 * nb, nb * (289 * 64 * 3 + 4 * 64 * 3)
+                  + dk.numel() * 4, ["la_downsample", "la_features"])
+    print(f"phase K12 lookahead (frame 1 vs 0, {tuple(cur.shape)} half "
+          f"planes): maps and head equal, kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K13: the motion search of frame 1 against the IDR
+    a, k = calls["me_fused"][-1]
+    gk = me2.me_fused(*a, **dict(k, reference=False))
+    gp = me2.me_fused(*a, **dict(k, reference=True))
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(gk, gp)):
+        raise AssertionError("K13 motion search: kernel and plain differ")
+    ms = cuda_ms(lambda: me2.me_fused(*a, **dict(k, reference=False)))
+    plain = cuda_ms(lambda: me2.me_fused(*a, **dict(k, reference=True)),
+                    reps=3, warm=False)
+    src = a[0]
+    Hs, Ws = src.shape
+    sr = me2.sr_for(a[2])
+    nq, n8 = (Hs // 16) * (Ws // 16), (Hs // 8) * (Ws // 8)
+    # operations: the quarter search ((2 sr + 1)^2 offsets x 16 samples x
+    # 3, once), the two +-3 refinements (49 x 16 and 49 x 64 samples x 3),
+    # and per quarter-pel candidate the separable 8-tap filter (15 x 8 + 8 x
+    # 8 rows of 8 multiply-adds), the SATD8 (about 6 x 64) and the rate;
+    # bytes: the picture and the reference read once, the motion written
+    ops = (nq * (2 * sr + 1) ** 2 * 16 * 3 + n8 * 49 * (16 + 64) * 3
+           + n8 * 49 * ((15 * 8 + 8 * 8) * 8 + 6 * 64 + 20))
+    bnd, by = row("motion_search", "me.cu", "ops/me2.py:207",
+                  max_abs_err(list(gk), list(gp)), ms, plain,
+                  2.0 * src.numel() + 12 * n8, ops,
+                  ["me_down2", "me_dense_l2", "me_refine3", "me_subpel8"])
+    print(f"phase K13 motion search ({Ws}x{Hs}, +-{sr} quarter-res, "
+          f"{n8} blocks): motion and costs equal, kernel {ms:.3f} ms, "
+          f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K15: every decision call (both iterations) and every snap call
+    err, first = 0.0, None
+    for a, k in calls["decide_tiers"]:
+        gk = tid.decide_tiers(*a, **dict(k, reference=False))
+        gp = tid.decide_tiers(*a, **dict(k, reference=True))
+        torch.cuda.synchronize()
+        if first is None:
+            first = gp
+        for (n, _), x, y in zip(a[3], gk, gp):
+            if not all(torch.equal(u.cpu(), v.cpu()) for u, v in zip(x, y)):
+                raise AssertionError(f"K15 decide tier {n}: kernel and "
+                                     "plain differ")
+            err = max(err, max_abs_err(list(x), list(y)))
+    for a, k in calls.get("snap_sads", []):
+        gk = tid.snap_sads(*a, **dict(k, reference=False))
+        gp = tid.snap_sads(*a, **dict(k, reference=True))
+        if not all(torch.equal(x, y) for x, y in zip(gk, gp)):
+            raise AssertionError("K15 snap SADs: kernel and plain differ")
+        err = max(err, max_abs_err(list(gk), list(gp)))
+    a, k = calls["decide_tiers"][0]
+    ms = cuda_ms(lambda: tid.decide_tiers(*a, **dict(k, reference=False)))
+    plain = cuda_ms(lambda: tid.decide_tiers(*a, **dict(k, reference=True)),
+                    reps=3, warm=False)
+    # operations, counted from this call's tiers and motions: per valid
+    # candidate its separable luma MC and SAD (3 a sample); per CU the
+    # rough cost (rough_ops) of the best merge candidate and of the ME
+    # motion where they exist, or, at the zero-only tier, of every valid
+    # candidate; bytes: the picture and the reference read once, the
+    # results written
+    ops, nbytes, ncu = 0.0, 3.0 * a[0][0].numel(), 0
+    for (n, zero_only), ta, out in zip(a[3], a[2], first):
+        cv, cmv = ta["cvalid"].cpu().bool(), ta["cmv0"].cpu().long()
+        ncu += cv.shape[1]
+        nbytes += cv.shape[1] * 9
+        if zero_only:
+            ops += float(rough_ops(cmv, n)[cv].sum())
+            continue
+        ops += float((mc_ops(cmv, n, True) + 3 * n * n)[cv].sum())
+        best = out[1].cpu().long()
+        bmv = cmv.gather(0, best[None, :, None].expand(1, -1, 2))[0]
+        ops += float(rough_ops(bmv, n)[cv.any(0)].sum())
+        ops += float(rough_ops(ta["mmv0"], n)[ta["ms0"].cpu() >= 0].sum())
+    bnd, by = row("inter_decide", "inter_decide.cu", "ops/interdecide.py:157",
+                  err, ms, plain, nbytes, ops,
+                  ["inter_decide", "inter_cand_sads"], ["inter_decide"])
+    print(f"phase K15 inter decide ({len(calls['decide_tiers'])} decision "
+          f"and {len(calls.get('snap_sads', []))} snap calls, {ncu} CUs in "
+          f"the first): equal, kernel {ms:.3f} ms, plain {plain:.3f} ms "
+          f"(first call), bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K17 (with the seeded K6 and K7) and K14 inside it
+    a, k = calls["code_inter_frame"][-1]
+    gk = tic.code_inter_frame(*a, **dict(k, reference=False),
+                              want_pred=True)
+    gp = tic.code_inter_frame(*a, **dict(k, reference=True), want_pred=True)
+    torch.cuda.synchronize()
+    for part, x, y in zip(("recon", "levels", "prediction"), gk, gp):
+        for c, u, v in zip("YUV", x, y):
+            if not torch.equal(u, v):
+                raise AssertionError(f"K17 inter code: {part} plane {c} "
+                                     "differs")
+    src, refs, slot0, mv0 = a[:4]
+    h8, w8, pic_w, pic_h = a[10:14]
+    mca = (refs, slot0.to(dev), mv0.to(dev), h8, w8, pic_w, pic_h)
+    mk = tic.mc_planes_cuda(*mca)
+
+    def mc_plain():
+        return mc_planes_plain(*refs, mca[1], mca[2],
+                               torch.full_like(mca[1], -1),
+                               torch.zeros_like(mca[2]), False, h8, w8,
+                               pic_w, pic_h)
+
+    mp = mc_plain()
+    for c, u, v, w in zip("YUV", mk, mp, gk[2]):
+        if not torch.equal(u, v) or not torch.equal(u, w):
+            raise AssertionError(f"K14 MC: plane {c} differs")
+    ms = cuda_ms(lambda: tic.mc_planes_cuda(*mca))
+    plain = cuda_ms(mc_plain, warm=False)
+    npx = src[0].numel() * 1.5
+    # operations: the separable filters this run's motion needs (mc_ops)
+    # and the rounding combine (3 a sample); bytes: the reference read and
+    # the prediction written once, the motion read
+    mc_total = float((mc_ops(mv0, 8, True)
+                      + 2 * mc_ops(mv0, 4, False)).sum())
+    bnd, by = row("inter_mc", "inter_code.cu", "ops/mc.py:180",
+                  max_abs_err(mk, mp), ms, plain, 2 * npx + 12 * h8 * w8,
+                  mc_total + 3 * npx, ["inter_mc"])
+    print(f"phase K14 MC ({h8 * w8} cells): kernel planes == plain == K17's "
+          f"prediction, kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
+          f"{bnd:.4f} ms ({by})", flush=True)
+    ms = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
+                                                          reference=False)))
+    plain = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
+                                                            reference=True)),
+                    reps=3, warm=False)
+    # operations: MC as K14's, per coded TU sample the forward and inverse
+    # transforms (4 stages of n multiply-adds, matrix form) and about 10
+    # for residual, quantisation, dequantisation and reconstruction; bytes:
+    # the picture, the reference, the recon and the int16 levels once each
+    tu_ops = sum(int(p[4].sum()) * n * n * (4 * n + 10)
+                 for (_, n), p in a[4].items())
+    bnd, by = row("inter_code", "inter_code.cu", "ops/intercode.py:141",
+                  max(max_abs_err(gk[0], gp[0]), max_abs_err(gk[1], gp[1])),
+                  ms, plain, npx * (1 + 1 + 1 + 2),
+                  mc_total + 3 * npx + tu_ops,
+                  ["inter_tu_class", "inter_gate", "inter_finish",
+                   "inter_bs"])
+    print(f"phase K17 inter code (seeded intra scan "
+          f"{'with' if a[6] is not None else 'without'} intra CUs): recon, "
+          f"levels and prediction equal, kernel {ms:.3f} ms (with K14, the "
+          f"seeded K6 and K7), plain {plain:.3f} ms, bound {bnd:.4f} ms "
+          f"({by})", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -138,6 +381,10 @@ def main() -> int:
     from ks265codec_tpu_torch.ops import _build
     from ks265codec_tpu_torch.ops import deblock as dbk
     from ks265codec_tpu_torch.ops import decide as dcd
+    from ks265codec_tpu_torch.ops import intercode as tic
+    from ks265codec_tpu_torch.ops import interdecide as tid
+    from ks265codec_tpu_torch.ops import lookahead as tla
+    from ks265codec_tpu_torch.ops import me2
     from ks265codec_tpu_torch.ops import saoapply as sap
     from ks265codec_tpu_torch.ops import saostats as sst
     from ks265codec_tpu_torch.ops import wavefront as wf
@@ -455,9 +702,39 @@ def main() -> int:
               f"and to K6's recon, {len(sched.levels)} levels, kernel "
               f"{ms:.3f} ms, plain {plain:.3f} ms", flush=True)
 
+    # K12, K13, K15, K17 and K14 on the low-delay P path's first P picture
+    # (frame 1 against the IDR of frame 0), on the inputs the encoder gives
+    # them, recorded by wrapping the op functions during a 2-frame encode
+    yuv = [YUVFrame(y, u, v, poc=i) for i, (y, u, v) in enumerate(frames)]
+    icfg = dict(width=W, height=H, preset="ultrafast", latency="zerolatency",
+                rc=0, qp=30, intra_period=0, frame_rate=30, sao=0)
+    calls = {}
+    spied = [(tla, "frame_features_batch"), (me2, "me_fused"),
+             (tid, "decide_tiers"), (tid, "snap_sads"),
+             (tic, "code_inter_frame")]
+    saved = [(m, name, getattr(m, name)) for m, name in spied]
+
+    def spy(name, fn):
+        def g(*a, **k):
+            calls.setdefault(name, []).append((a, k))
+            return fn(*a, **k)
+        return g
+
+    for m, name, fn in saved:
+        setattr(m, name, spy(name, fn))
+    try:
+        enc = HevcEncoder(EncoderConfig(**icfg))
+        for fr in yuv[:2]:
+            enc.encode_frame(fr)
+        enc.flush()
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    torch.cuda.synchronize()
+    rows.update(inter_kernel_phases(calls, yuv, dev, card))
+
     # ---- phase 4: the main path through the encoder's entry points, in
     # bench.py's configuration (SAO from the preset: ultrafast = tier 1)
-    yuv = [YUVFrame(y, u, v, poc=i) for i, (y, u, v) in enumerate(frames)]
     cfg = dict(width=W, height=H, preset="ultrafast", qp=27, intra_period=1,
                tiles="8x6")
 
@@ -476,6 +753,8 @@ def main() -> int:
             raise AssertionError(f"{path} never launched {missing}")
         return sum(counts[c] for c in names)
 
+    for key in ("decide", "intra_scan", "deblock"):
+        rows[key]["required"] = rows[key]["counters"]
     encode(yuv)                                  # warm-up
     torch.cuda.synchronize()
     _build.reset_launches()
@@ -558,7 +837,63 @@ def main() -> int:
     print(f"phase SAO off: 4 frames ({len(a)} bytes) kernel stream == plain "
           "stream", flush=True)
 
-    # ---- phase 7: the CLIs on the card
+    # ---- phase 7: the low-delay P path (BASELINE.json config 2 with SAO
+    # off): 8 frames on the kernels == on the plain versions, then a timed
+    # 24-frame encode after a warm-up
+    def iencode(frames_in, reference=False):
+        enc = HevcEncoder(EncoderConfig(**icfg), reference=reference)
+        efs = []
+        for fr in frames_in:
+            efs += enc.encode_frame(fr)
+        efs += enc.flush()
+        return efs
+
+    ka = iencode(yuv[:8])
+    kb = iencode(yuv[:8], reference=True)
+    if b"".join(e.data for e in ka) != b"".join(e.data for e in kb) or \
+            md5s(e.recon for e in ka) != md5s(e.recon for e in kb):
+        raise AssertionError("8-frame IPPP stream or recon: kernels and "
+                             "plain versions differ")
+    print(f"phase inter kernels vs plain stream: 8 frames "
+          f"({sum(len(e.data) for e in ka)} bytes, slice types "
+          f"{''.join(e.slice_type for e in ka)}) identical, recon md5s "
+          "equal", flush=True)
+    iencode(yuv[:4])                             # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    iefs = iencode(yuv[:INTER_FRAMES])
+    torch.cuda.synchronize()
+    isecs = time.perf_counter() - t0
+    icounts = dict(_build.launches)
+    for key in ("decide", "intra_scan", "deblock", "lookahead",
+                "motion_search", "inter_decide", "inter_mc", "inter_code"):
+        launches = check_counts(rows[key]["required"], icounts,
+                                "low-delay P path")
+        if key in INTER_ROWS:
+            rows[key]["launches"] = sum(icounts.get(c, 0)
+                                        for c in rows[key]["counters"])
+        del launches
+    istream = b"".join(e.data for e in iefs)
+    irec = sorted(iefs, key=lambda e: e.display_idx)
+    imse = np.mean([np.mean((e.recon.y.astype(np.float64)
+                             - f.y.astype(np.float64)) ** 2)
+                    for e, f in zip(irec, yuv)])
+    ipsnr = 10 * np.log10(255.0 ** 2 / imse)
+    if not ipsnr > 30.0:
+        raise AssertionError(f"IPPP recon luma PSNR {ipsnr:.2f} dB <= 30 dB")
+    inter_fps = len(iefs) / isecs
+    slice_types = "".join(e.slice_type for e in iefs)
+    if slice_types.count("P") < INTER_FRAMES // 2:
+        raise AssertionError("IPPP stream holds too few P pictures: "
+                             + slice_types)
+    print(f"phase inter path: {len(iefs)} frames {W}x{H} (ultrafast "
+          f"zerolatency QP 30 SAO off) in {isecs:.3f} s = {inter_fps:.3f} "
+          f"fps on {card}; stream {len(istream)} bytes md5 "
+          f"{hashlib.md5(istream).hexdigest()}; luma PSNR {ipsnr:.3f} dB; "
+          f"slice types {slice_types}; launches {icounts}", flush=True)
+
+    # ---- phase 8: the CLIs on the card
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -603,16 +938,48 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     print(f"phase CLI: app_encoder 8 frames ({len(want)} bytes) == "
           "HevcEncoder, app_decoder -md5 1 == encoder md5s", flush=True)
+    work.mkdir(parents=True)
+    try:
+        (work / "in.yuv").write_bytes(b"".join(f.tobytes() for f in yuv[:4]))
+        argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
+                "-frms", "4", "-b", str(work / "ippp.265"), "-preset",
+                "ultrafast", "-latency", "zerolatency", "-iper", "0",
+                "-sao", "0", "-qp", "30", "-rdoq", "0", "-fr", "30"]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = app_encoder.main(argv)
+        for key in ("lookahead", "motion_search", "inter_decide",
+                    "inter_code"):
+            check_counts(rows[key]["required"], _build.launches,
+                         "app_encoder (IPPP)")
+        ccfg = app_encoder.cfg_from_args(
+            app_encoder.build_parser().parse_args(argv))
+        enc = HevcEncoder(ccfg)
+        cefs = []
+        for fr in yuv[:4]:
+            cefs += enc.encode_frame(fr)
+        cefs += enc.flush()
+        want = b"".join(e.data for e in cefs)
+        if rc != 0 or (work / "ippp.265").read_bytes() != want:
+            raise AssertionError("app_encoder -latency zerolatency -iper 0: "
+                                 "bytes differ from HevcEncoder's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase CLI IPPP: app_encoder -latency zerolatency -iper 0 -sao 0 "
+          f"4 frames ({len(want)} bytes, slice types "
+          f"{''.join(e.slice_type for e in cefs)}) == HevcEncoder", flush=True)
 
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
-                "intra_recon"):
+                "intra_recon") + INTER_ROWS:
         r = rows[key]
         r.pop("counters")
+        r.pop("required", None)
         table.append(r)
     print(smi)
     print(json.dumps({"kernels": table, "main_path_fps": fps,
-                      "decode_fps": decode_fps}))
+                      "decode_fps": decode_fps,
+                      "inter_path_fps": inter_fps}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

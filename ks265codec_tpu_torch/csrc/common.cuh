@@ -192,3 +192,83 @@ static __device__ void ks_smooth_refs(const int* ru, int* rf, int n) {
   }
   __syncthreads();
 }
+
+// 8x8 Hadamard SATD of d (= src - pred), HM normalisation (sum + 2) >> 2.
+static __device__ int ks_satd8(int* d) {
+  for (int r = 0; r < 8; r++)
+    for (int h = 1; h < 8; h <<= 1)
+      for (int i = 0; i < 8; i += 2 * h)
+        for (int j = i; j < i + h; j++) {
+          const int a = d[8 * r + j], b = d[8 * r + j + h];
+          d[8 * r + j] = a + b;
+          d[8 * r + j + h] = a - b;
+        }
+  int s = 0;
+  for (int c = 0; c < 8; c++) {
+    for (int h = 1; h < 8; h <<= 1)
+      for (int i = 0; i < 8; i += 2 * h)
+        for (int j = i; j < i + h; j++) {
+          const int a = d[8 * j + c], b = d[8 * (j + h) + c];
+          d[8 * j + c] = a + b;
+          d[8 * (j + h) + c] = a - b;
+        }
+    for (int r = 0; r < 8; r++) s += abs(d[8 * r + c]);
+  }
+  return (s + 2) >> 2;
+}
+
+// Halving sum of 8 lanes: lanes i and i+4, then i and i+2, then 0 and 1.
+static __device__ __forceinline__ float ks_tree8(const float* v) {
+  const float s0 = v[0] + v[4], s1 = v[1] + v[5], s2 = v[2] + v[6],
+              s3 = v[3] + v[7];
+  return (s0 + s2) + (s1 + s3);
+}
+
+// float32 sum of an n x n block in the reference backend's order
+// (ops/decide._block_sum).
+static __device__ float ks_block_sum(const float* x, int n) {
+  if (n == 4) {
+    float l[4];
+    for (int r = 0; r < 4; r++)
+      l[r] = ((x[4 * r] + x[4 * r + 1]) + x[4 * r + 2]) + x[4 * r + 3];
+    return (l[0] + l[2]) + (l[1] + l[3]);
+  }
+  float acc = 0.f;
+  for (int r = 0; r < n; r++) {
+    float v[8];
+    for (int i = 0; i < 8; i++) v[i] = x[r * n + i];
+    v[0] = acc + v[0];
+    for (int k = 8; k < n; k += 8)
+      for (int i = 0; i < 8; i++) v[i] = v[i] + x[r * n + k + i];
+    acc = ks_tree8(v);
+  }
+  return acc;
+}
+
+// float32 sum of the level-bit terms of an n x n TU in the reference
+// backend's order (ops/intercode._lane_sum): for n <= 16 lane r % 8 (r % 4
+// at n = 4) takes row r's values in column order, rows in order, then the
+// lanes by halving; at n = 32 the order of ks_block_sum.
+static __device__ float ks_lane_sum(const float* x, int n) {
+  if (n == 32) return ks_block_sum(x, n);
+  const int L = n < 8 ? n : 8;
+  float v[8];
+  for (int i = 0; i < L; i++) {
+    v[i] = x[i * n];
+    for (int c = 1; c < n; c++) v[i] = v[i] + x[i * n + c];
+  }
+  for (int r0 = L; r0 < n; r0 += L)
+    for (int i = 0; i < L; i++)
+      for (int c = 0; c < n; c++) v[i] = v[i] + x[(r0 + i) * n + c];
+  if (L == 4) return (v[0] + v[2]) + (v[1] + v[3]);
+  return ks_tree8(v);
+}
+
+// Inter deadzone quantisation of |c| (rounding 85/512): a level >= 0.
+static __device__ __forceinline__ int ks_quant_abs_inter(const int* tab, int a,
+                                                         int qp, int log2) {
+  const int qbits = 29 + qp / 6 - 8 - log2;
+  const int rnd = 85 << (qbits - 9);
+  const int q = (a * tab[T_QUANT + qp % 6] + rnd) >> qbits;
+  return q > 32767 ? 32767 : q;
+}

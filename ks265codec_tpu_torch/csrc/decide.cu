@@ -69,58 +69,6 @@ __device__ __forceinline__ int parent_mode(const int* mode16, int n, int bx,
                 : mode16[(2 * by) * w16 + 2 * bx];
 }
 
-// 8x8 Hadamard SATD of d (= src - pred), HM normalisation (sum + 2) >> 2.
-__device__ int satd8(int* d) {
-  for (int r = 0; r < 8; r++)
-    for (int h = 1; h < 8; h <<= 1)
-      for (int i = 0; i < 8; i += 2 * h)
-        for (int j = i; j < i + h; j++) {
-          const int a = d[8 * r + j], b = d[8 * r + j + h];
-          d[8 * r + j] = a + b;
-          d[8 * r + j + h] = a - b;
-        }
-  int s = 0;
-  for (int c = 0; c < 8; c++) {
-    for (int h = 1; h < 8; h <<= 1)
-      for (int i = 0; i < 8; i += 2 * h)
-        for (int j = i; j < i + h; j++) {
-          const int a = d[8 * j + c], b = d[8 * (j + h) + c];
-          d[8 * j + c] = a + b;
-          d[8 * (j + h) + c] = a - b;
-        }
-    for (int r = 0; r < 8; r++) s += abs(d[8 * r + c]);
-  }
-  return (s + 2) >> 2;
-}
-
-// Halving sum of 8 lanes: lanes i and i+4, then i and i+2, then 0 and 1.
-__device__ __forceinline__ float tree8(const float* v) {
-  const float s0 = v[0] + v[4], s1 = v[1] + v[5], s2 = v[2] + v[6],
-              s3 = v[3] + v[7];
-  return (s0 + s2) + (s1 + s3);
-}
-
-// float32 sum of an n x n block in the reference backend's order
-// (ops/decide._block_sum).
-__device__ float block_sum(const float* x, int n) {
-  if (n == 4) {
-    float l[4];
-    for (int r = 0; r < 4; r++)
-      l[r] = ((x[4 * r] + x[4 * r + 1]) + x[4 * r + 2]) + x[4 * r + 3];
-    return (l[0] + l[2]) + (l[1] + l[3]);
-  }
-  float acc = 0.f;
-  for (int r = 0; r < n; r++) {
-    float v[8];
-    for (int i = 0; i < 8; i++) v[i] = x[r * n + i];
-    v[0] = acc + v[0];
-    for (int k = 8; k < n; k += 8)
-      for (int i = 0; i < 8; i++) v[i] = v[i] + x[r * n + k + i];
-    acc = tree8(v);
-  }
-  return acc;
-}
-
 struct PassA {
   int ru[4 * KS_MAX_N + 1];
   int rf[4 * KS_MAX_N + 1];
@@ -153,7 +101,7 @@ __global__ void pass_a_kernel(const uint8_t* planes, const int* mode16,
       d[k] = (int)p[(by * n + y) * W + bx * n + x] -
              ks_pred_pixel(tab, m, n, true, s.ru, s.rf, dc, y, x);
     }
-    s.part[m][sb] = satd8(d);
+    s.part[m][sb] = ks_satd8(d);
   }
   __syncthreads();
   for (int m = threadIdx.x; m < 35; m += blockDim.x) {
@@ -219,8 +167,8 @@ __device__ void rough_cost(const int* tab, const float* btab, int n, int qp,
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    const float D = block_sum(s.sq, n) * ldexpf(1.f, 2 * log2 - 14);
-    const float R = block_sum(s.bits, n);
+    const float D = ks_block_sum(s.sq, n) * ldexpf(1.f, 2 * log2 - 14);
+    const float R = ks_block_sum(s.bits, n);
     s.D = s.D + D;
     s.R = s.R + R;
   }

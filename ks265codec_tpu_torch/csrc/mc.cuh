@@ -1,0 +1,50 @@
+// K14 — motion compensation as device functions, replacing
+// ks265codec_tpu/ops/mc.py (`_interp_cells`, `_combine`, `_mc_core`):
+// the 8-tap luma / 4-tap chroma separable filters of spec 8.5.4.2.2 with
+// 14-bit intermediates. Phase 0 of each filter is the integer pick with
+// weight 64, so one `>> 6` after the vertical pass gives every fx / fy
+// case exactly, as the plain version (ops/mc.py) computes it. Reference
+// samples are clamped per sample to the coded picture (pic_w x pic_h).
+// Used by K13 (csrc/me.cu), K15 (csrc/inter_decide.cu) and K17
+// (csrc/inter_code.cu).
+#pragma once
+
+#include "common.cuh"
+
+static __constant__ int ks_luma_filter[4][8] = {
+    {0, 0, 0, 64, 0, 0, 0, 0},
+    {-1, 4, -10, 58, 17, -5, 1, 0},
+    {-1, 4, -11, 40, 40, -11, 4, -1},
+    {0, 1, -5, 17, 58, -10, 4, -1}};
+
+static __constant__ int ks_chroma_filter[8][4] = {
+    {0, 64, 0, 0},   {-2, 58, 10, -2}, {-4, 54, 16, -2}, {-6, 46, 28, -4},
+    {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
+
+// 14-bit prediction of sample (y, x) of the block at (by, bx) of plane
+// `ref` (row stride `stride`) with motion (mvx, mvy): quarter-pel for luma,
+// eighth-pel for chroma.
+static __device__ int ks_mc_sample(const uint8_t* ref, int stride, int pic_w,
+                                   int pic_h, int by, int bx, int mvx,
+                                   int mvy, bool luma, int y, int x) {
+  const int fb = luma ? 2 : 3, taps = luma ? 8 : 4, pad_l = luma ? 3 : 1;
+  const int iy = by + (mvy >> fb) - pad_l + y;
+  const int ix = bx + (mvx >> fb) - pad_l + x;
+  const int fy = mvy & ((1 << fb) - 1), fx = mvx & ((1 << fb) - 1);
+  int v = 0;
+  for (int k = 0; k < taps; k++) {
+    const uint8_t* row = ref + (size_t)ks_clip3(0, pic_h - 1, iy + k) * stride;
+    int h = 0;
+    for (int j = 0; j < taps; j++) {
+      const int c = luma ? ks_luma_filter[fx][j] : ks_chroma_filter[fx][j];
+      h += c * row[ks_clip3(0, pic_w - 1, ix + j)];
+    }
+    v += (luma ? ks_luma_filter[fy][k] : ks_chroma_filter[fy][k]) * h;
+  }
+  return v >> 6;
+}
+
+// Default uni-prediction combine of a 14-bit sample to 8 bits.
+static __device__ __forceinline__ int ks_mc_uni(int p) {
+  return ks_clip3(0, 255, (p + 32) >> 6);
+}

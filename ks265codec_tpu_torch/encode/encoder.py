@@ -1,13 +1,25 @@
-"""All-intra HEVC encoder on the port's device path: the entry point of
+"""HEVC encoder on the port's device path: the entry point of
 ks265codec_tpu_torch.
 
 Same configuration (`EncoderConfig`), the same `encode_frame` / `flush`
 contract and the same `EncodedFrame` as ks265codec_tpu/encode/encoder.py,
-for the configurations the port covers: all-intra (`intra_period=1`),
-fixed QP, the fast presets' tools, SAO at any tier. Per batch of frames
-it follows the reference's batched all-intra path (`_drain`'s all-intra
-branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the IDR
-branch of `_encode_picture`):
+for the configurations the port covers (`unsupported` lists the rest):
+fixed QP, the fast presets' tools, and either all-intra
+(`intra_period=1`, SAO at any tier) or low-delay P (`bframes == 0`, one
+reference, SAO off).
+
+Low-delay P follows the reference's `_drain` IDR and low-delay branches
+and the P branch of `_encode_picture`: every frame is pushed to the
+lookahead (K12, ops/lookahead.py), whose scene cuts turn a P into an IDR;
+an IDR goes through the all-intra kernels below as a one-frame batch and
+its device reconstruction enters the device DPB directly; each P picture
+takes the previous picture as its one reference and the +3/+2/+3/+1 QP
+cascade, and is coded by the inter engine (encode/inter_engine.py: K5,
+K13, K15, K17 with K14 and the seeded K6 scan, K7).
+
+All-intra follows the reference's batched all-intra path (`_drain`'s
+all-intra branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the
+IDR branch of `_encode_picture`):
   1. ops/decide.py      decision maps for the batch (K5),
   2. ops/wavefront.py   the level-scheduled intra coding scan (K6),
   3. ops/deblock.py     deblocking of the reconstruction (K7),
@@ -34,14 +46,17 @@ import torch
 from .. import resolve_device
 from ..bitstream.nal import NalType, epb_insert_positions, write_nal
 from ..decode.slice_dec import FrameState
-from ..hevc.params import PPS, SPS, VPS, VUI, ProfileTierLevel, write_pps, \
-    write_sps, write_vps
-from ..hevc.slicehdr import I_SLICE, SliceHeader, write_slice_header
+from ..hevc.params import PPS, SPS, VPS, VUI, ProfileTierLevel, \
+    ShortTermRPS, write_pps, write_sps, write_vps
+from ..hevc.slicehdr import I_SLICE, P_SLICE, SliceHeader, \
+    write_slice_header
 from ..ops.deblock import deblock_frames, intra_bs_maps
 from ..ops.decide import decide_frames
 from ..ops.saoapply import sao_apply_frames
 from ..ops.saostats import sao_stats_frames
 from ..ops.wavefront import WavefrontIntraCoder, code_intra_frames
+from ..utils.log import log
+from ..utils.pool import FramePool
 from ..utils.trace import stage
 from ..utils.yuv import LazyYUV, YUVFrame
 from .config import RC_FIXQP, EncoderConfig, resolve_preset, tile_dims
@@ -72,8 +87,18 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
     """The parts of a resolved configuration this port does not cover yet
     (empty when it covers all of them)."""
     out = []
+    inter = cfg.intra_period != 1
     checks = [
-        (cfg.intra_period != 1, "inter coding (intra_period != 1)"),
+        (inter and cfg.bframes != 0, "B pictures (bframes > 0)"),
+        (inter and cfg.refs > 1, "multiple reference pictures (refs > 1)"),
+        (inter and bool(cfg.weightp), "weighted prediction (weightp)"),
+        (inter and cfg.sao > 0, "SAO in P pictures (K16)"),
+        (inter and tile_dims(cfg) != (1, 1), "tiles with inter coding"),
+        (inter and cfg.partitions != 0, "inter partitions"),
+        (inter and cfg.inter_tu_depth != 0, "the inter TU split"),
+        (inter and bool(cfg.noise_reduction), "noise reduction"),
+        (inter and bool(cfg.long_term_ref), "long-term references"),
+        (inter and bool(cfg.open_gop), "open GOP (CRA pictures)"),
         (cfg.rc != RC_FIXQP, "rate control other than fixed QP"),
         (cfg.pass_num != 0, "two-pass rate control"),
         (bool(cfg.aq_mode), "adaptive quantisation (aq_mode)"),
@@ -117,6 +142,17 @@ class HevcEncoder:
         self._coded_count = 0
         self._coder = WavefrontIntraCoder()
         self._fs = FrameState(self.sps)
+        self._inter = cfg.intra_period != 1
+        self.gop_base = 0
+        self.dpb: list = []             # encoder-side reference pictures
+        self._last_recon = None
+        from .devdpb import DeviceDPB
+        from .lookahead import Lookahead
+        from .rc import RateControl
+        self.rc = RateControl(cfg)
+        self.la = Lookahead(cfg, self.device, self.reference)
+        self.dev_dpb = DeviceDPB(self.device)   # device reference planes
+        self.frame_pool = FramePool()           # host FrameState recycling
         if cfg.latency == "offline":
             # batch size scales inversely with pixel count (decide
             # intermediates of the plain version grow with the batch)
@@ -138,7 +174,8 @@ class HevcEncoder:
 
     @staticmethod
     def _dpb_params(cfg: EncoderConfig) -> tuple[int, int]:
-        """(max_dec_pic_buffering, num_reorder_pics); all-intra."""
+        """(max_dec_pic_buffering, num_reorder_pics); all-intra or
+        low-delay P."""
         return max(2, int(cfg.refs) + 1), 0
 
     def _make_vps(self, cfg: EncoderConfig) -> VPS:
@@ -257,6 +294,9 @@ class HevcEncoder:
         """Push one input frame; returns 0+ coded pictures in coding order
         (frames wait until a batch is full)."""
         self.queue.append((self.frame_idx, frame))
+        if self._inter:
+            with stage("la.push"):
+                self.la.push(self.frame_idx, np.asarray(frame.y, np.uint8))
         self.frame_idx += 1
         return self._drain(False)
 
@@ -272,6 +312,8 @@ class HevcEncoder:
         return self._dispatch(items)
 
     def _drain(self, flushing: bool) -> list[EncodedFrame]:
+        if self._inter:
+            return self._drain_low_delay(flushing)
         out: list[EncodedFrame] = []
         full = self._sizes[0]
         while self.queue or self._pending is not None:
@@ -286,6 +328,171 @@ class HevcEncoder:
                 self._pending = self._take()
             out += self._collect(ctx)
         return out
+
+    def _drain_low_delay(self, flushing: bool) -> list[EncodedFrame]:
+        """The reference `_drain`'s IDR and low-delay branches: one
+        picture per step, an IDR at the intra period or a scene cut,
+        else a P picture of the LDP plan."""
+        from .gop import gop_plan
+        out: list[EncodedFrame] = []
+        cfg = self.cfg
+        iper = cfg.intra_period
+        while self.queue:
+            idx0 = self.queue[0][0]
+            if idx0 == 0 or (iper > 0 and idx0 % iper == 0):
+                out.append(self._encode_idr(*self.queue.pop(0)))
+                continue
+            with stage("la.features"):
+                fa0 = self.la.get(idx0, force=flushing)
+            if fa0 is not None and fa0.scenecut:
+                # lookahead scene cut -> start a new IDR here
+                self.la.analyses[idx0].scenecut = False
+                out.append(self._encode_idr(*self.queue.pop(0)))
+                continue
+            ldp = gop_plan(cfg.latency, cfg.bframes, cfg.refs)
+            di, f = self.queue.pop(0)
+            if self.dpb and self.rc.should_skip("P"):
+                # VBV nearly empty: emit no NAL, repeat the last reference
+                self.rc.skipped()
+                ef = EncodedFrame(
+                    data=b"", recon=self._wrap_recon(self.dpb[-1].fs),
+                    poc=self.dpb[-1].poc, qp=0, bits=0, slice_type="skip")
+                ef.display_idx = di
+                ef.pts = di
+                out.append(ef)
+                continue
+            out.append(self._encode_p(f, di, ldp[self.gop_base % len(ldp)]))
+            self.gop_base += 1
+        return out
+
+    def _encode_idr(self, display_idx: int, frame) -> EncodedFrame:
+        """An IDR of a low-delay stream: the all-intra kernels on a
+        one-frame batch; its device reconstruction enters the device DPB."""
+        self.gop_base = 0
+        for rp in self.dpb:
+            self.frame_pool.release(rp.fs)
+        self.dpb.clear()
+        fs = self.frame_pool.acquire(self.sps)
+        fs.poc = 0
+        ef = self._collect(self._dispatch([(display_idx, frame)]), fs)[0]
+        from ..decode.decoder import RefPic, _HostView
+        planes = tuple(p[0] for p in self._last_recon)
+        fs.attach_device_planes([_HostView(p) for p in planes])
+        self.dpb.append(RefPic(fs, 0))
+        self.dev_dpb.put(fs, planes)
+        self.dev_dpb.trim({rp.fs.serial for rp in self.dpb})
+        self._rc_update(ef, 0, 1e5)
+        return ef
+
+    def _encode_p(self, frame, display_idx: int, plan) -> EncodedFrame:
+        """One P picture of the LDP plan (the reference `_encode_picture`'s
+        P branch): RPS trimmed to the DPB, L0 from it, TMVP from L0[0],
+        the inter engine, the slice, then the DPB and device-DPB update."""
+        from ..decode.decoder import RefPic
+        from .inter_frame import PFrameEncoder
+        cfg, sps, pps = self.cfg, self.sps, self.pps
+        poc = self.gop_base + plan.poc_in_gop
+        tid = plan.tid
+        qp = int(np.clip(cfg.qp + plan.qp_offset, 0, 51))
+        hdr = SliceHeader(nal_type=NalType.TRAIL_R, temporal_id=tid,
+                          first_slice_in_pic=1, pps_id=0,
+                          slice_type=P_SLICE, slice_qp=qp,
+                          pic_order_cnt_lsb=poc & 0xFF)
+        hdr.poc = poc
+        hdr.deblocking_filter_disabled = pps.deblocking_filter_disabled
+        hdr.beta_offset_div2 = pps.beta_offset_div2
+        hdr.tc_offset_div2 = pps.tc_offset_div2
+        by_poc = {rp.poc: rp for rp in self.dpb}
+        # trim RPS entries to pictures actually in the DPB
+        pairs = [(d, u) for d, u in zip(plan.ref_deltas, plan.ref_used)
+                 if poc + d in by_poc]
+        if not pairs:
+            pairs = [(plan.ref_deltas[0], 1)]
+        deltas = [d for d, _ in pairs]
+        hdr.st_rps = ShortTermRPS(
+            delta_pocs=deltas, used=[u for _, u in pairs],
+            num_negative=sum(1 for d in deltas if d < 0),
+            num_positive=sum(1 for d in deltas if d > 0))
+        hdr.st_rps_idx = -1
+        l0 = [by_poc[poc + d] for d in plan.l0 if poc + d in by_poc]
+        hdr.num_ref_idx = [max(1, len(l0)), 0]
+        if sps.temporal_mvp_enabled:
+            # collocated picture = L0[0]
+            hdr.temporal_mvp_enabled = 1
+            hdr.collocated_from_l0 = 1
+            hdr.collocated_ref_idx = 0
+        fs = self.frame_pool.acquire(sps)
+        fs.poc = poc
+        enc = PFrameEncoder(fs, sps, pps, hdr, frame.y.astype(np.int32),
+                            frame.u.astype(np.int32),
+                            frame.v.astype(np.int32), qp, [l0, []],
+                            subme=cfg.subme, device=self.device,
+                            reference=self.reference)
+        enc.lam_scale = cfg.lambda_scale
+        enc.rdoq = bool(cfg.rdoq)
+        enc.decide_effort = int(cfg.decide_effort)
+        enc.merange = int(cfg.merange)
+        enc.me_method = int(cfg.me)
+        enc.partitions = int(cfg.partitions)
+        enc.inter_tu_depth = int(cfg.inter_tu_depth)
+        enc.dev_dpb = self.dev_dpb
+        enc.sao_tier = max(int(cfg.sao), 1)
+        enc.compute()
+        recon_dev = enc.device_post["recon_dev"]
+        rbsp = self._slice_rbsp(fs, enc.syn, hdr, None)
+        data = b""
+        if cfg.pic_timing_sei:
+            from ..hevc.sei import pic_timing_payload, write_sei_rbsp
+            data += write_nal(NalType.PREFIX_SEI,
+                              write_sei_rbsp([(1, pic_timing_payload())]),
+                              temporal_id=tid)
+        data += write_nal(hdr.nal_type, rbsp, temporal_id=tid)
+        rec = self._lazy_recon(tuple(p[None] for p in recon_dev), 0, poc)
+        if cfg.md5:
+            from ..hevc.sei import picture_hash_payload, write_sei_rbsp
+            data += write_nal(
+                NalType.SUFFIX_SEI,
+                write_sei_rbsp([(132, picture_hash_payload(
+                    rec.y, rec.u, rec.v))]), temporal_id=tid)
+        # DPB update: keep the pictures this RPS names, plus this one
+        keep = {poc + d for d in hdr.st_rps.delta_pocs}
+        for rp in self.dpb:
+            if rp.poc not in keep:
+                self.frame_pool.release(rp.fs)
+        self.dpb = [rp for rp in self.dpb if rp.poc in keep]
+        self.dpb.append(RefPic(fs, poc))
+        self.dev_dpb.put(fs, recon_dev)
+        self.dev_dpb.trim({rp.fs.serial for rp in self.dpb})
+        log(-1, "enc poc %d P qp %d bits %d" % (poc, qp, len(data) * 8))
+        ef = EncodedFrame(data=data, recon=rec, poc=poc, qp=qp,
+                          bits=len(data) * 8, slice_type="P")
+        ef.display_idx = display_idx
+        ef.temporal_id = tid
+        ef.pts = display_idx
+        ef.dts = self._coded_count - sps.num_reorder_pics[-1]
+        self._coded_count += 1
+        if cfg.psnr:
+            ef.psnr = _psnr(frame, rec)
+        self._rc_update(ef, tid, getattr(enc, "frame_cplx", 1e5))
+        return ef
+
+    def _rc_update(self, ef: EncodedFrame, tid: int, cplx: float) -> None:
+        """Rate-control feedback with the lookahead cost where there is
+        one (the reference reads the lookahead here too)."""
+        fa = self.la.get(ef.display_idx)
+        self.rc.update(ef.slice_type, tid, ef.qp, ef.bits,
+                       fa.cost if fa is not None else cplx)
+
+    def _wrap_recon(self, fs) -> YUVFrame:
+        fs.ensure_planes()
+        l, r, t, b = self.sps.conf_win
+        x0, x1 = 2 * l, self.sps.width - 2 * r
+        y0, y1 = 2 * t, self.sps.height - 2 * b
+        return YUVFrame(
+            fs.y[y0:y1, x0:x1].astype(np.uint8),
+            fs.cb[y0 // 2:y1 // 2, x0 // 2:x1 // 2].astype(np.uint8),
+            fs.cr[y0 // 2:y1 // 2, x0 // 2:x1 // 2].astype(np.uint8),
+            poc=fs.poc)
 
     def _dispatch(self, items):
         """Decide, code and deblock a batch on the device and take its SAO
@@ -355,7 +562,7 @@ class HevcEncoder:
                     reference=self.reference) for rec, s, sh in planes]
         return items, qp, batch, levels, recon, stats
 
-    def _collect(self, ctx) -> list[EncodedFrame]:
+    def _collect(self, ctx, fs=None) -> list[EncodedFrame]:
         items, qp, batch, levels, recon, stats = ctx
         sps = self.sps
         with stage("ai.fetch_levels"):
@@ -370,14 +577,16 @@ class HevcEncoder:
                 recon = sao_apply_frames(
                     *recon, *prm, True, True, sps.width, sps.height,
                     sps.ctb_size, reference=self.reference)
+        self._last_recon = recon
         return [self._encode_picture(frame, di, qp, batch[f], cy[f], ccb[f],
-                                     ccr[f], recon, f, sao_arr[f])
+                                     ccr[f], recon, f, sao_arr[f], fs)
                 for f, (di, frame) in enumerate(items)]
 
     def _encode_picture(self, frame, display_idx: int, qp: int, maps,
                         cy, ccb, ccr, recon, fidx: int,
-                        sao_arrays=None) -> EncodedFrame:
-        """Entropy-code one IDR picture from its maps and levels."""
+                        sao_arrays=None, fs=None) -> EncodedFrame:
+        """Entropy-code one IDR picture from its maps and levels; fs is the
+        picture's FrameState (the encoder's own when it keeps no DPB)."""
         cfg, sps, pps = self.cfg, self.sps, self.pps
         hdr = SliceHeader(nal_type=NalType.IDR_W_RADL, temporal_id=0,
                           first_slice_in_pic=1, pps_id=0,
@@ -390,8 +599,9 @@ class HevcEncoder:
         if sps.sao_enabled:
             hdr.sao_luma = 1
             hdr.sao_chroma = 1
-        fs = self._fs
-        fs.reset(sps)
+        if fs is None:
+            fs = self._fs
+            fs.reset(sps)
         enc = IntraFrameEncoder(fs, sps, pps, hdr)
         enc.apply_coded_planes(maps["log2m"], maps["modes8"],
                                maps["cmodes8"], maps["qp_map8"], cy, ccb,
@@ -400,11 +610,41 @@ class HevcEncoder:
         # slice writer codes them as each CTB's sao() syntax
         sao_params = (None if sao_arrays is None
                       else params_from_arrays(fs, *sao_arrays))
+        rbsp = self._slice_rbsp(fs, enc.syn, hdr, sao_params)
+        data = b""
+        if not self.headers_written or cfg.headers_before_keyframe:
+            data += self.encode_headers()
+        if cfg.pic_timing_sei:
+            from ..hevc.sei import pic_timing_payload, write_sei_rbsp
+            data += write_nal(NalType.PREFIX_SEI,
+                              write_sei_rbsp([(1, pic_timing_payload())]))
+        data += write_nal(hdr.nal_type, rbsp)
+        rec = self._lazy_recon(recon, fidx)
+        if cfg.md5:
+            from ..hevc.sei import picture_hash_payload, write_sei_rbsp
+            data += write_nal(
+                NalType.SUFFIX_SEI,
+                write_sei_rbsp([(132, picture_hash_payload(
+                    rec.y, rec.u, rec.v))]))
+        ef = EncodedFrame(data=data, recon=rec, poc=0, qp=qp,
+                          bits=len(data) * 8, slice_type="I")
+        ef.display_idx = display_idx
+        ef.pts = display_idx
+        ef.dts = self._coded_count - sps.num_reorder_pics[-1]
+        self._coded_count += 1
+        if cfg.psnr:
+            ef.psnr = _psnr(frame, rec)
+        return ef
+
+    def _slice_rbsp(self, fs, syn, hdr, sao_params) -> bytes:
+        """The slice NAL's RBSP: header plus the native CABAC slice data,
+        entry points counted after emulation prevention."""
+        cfg, sps, pps = self.cfg, self.sps, self.pps
         nthreads = (cfg.threads if cfg.threads > 0
                     else min(os.cpu_count() or 1, 8))
         with stage("enc.write_slice"):
             slice_data, raw_entries = write_slice_data(
-                fs, enc.syn, sps, pps, hdr, sao_params, threads=nthreads)
+                fs, syn, sps, pps, hdr, sao_params, threads=nthreads)
         if pps.entropy_coding_sync_enabled or pps.tiles_enabled:
             hdr.num_entry_points = len(raw_entries)
             hdr.entry_points = list(raw_entries)
@@ -431,32 +671,9 @@ class HevcEncoder:
             if adjusted == hdr.entry_points:
                 break
             hdr.entry_points = adjusted
-        data = b""
-        if not self.headers_written or cfg.headers_before_keyframe:
-            data += self.encode_headers()
-        if cfg.pic_timing_sei:
-            from ..hevc.sei import pic_timing_payload, write_sei_rbsp
-            data += write_nal(NalType.PREFIX_SEI,
-                              write_sei_rbsp([(1, pic_timing_payload())]))
-        data += write_nal(hdr.nal_type, bytes(rbsp))
-        rec = self._lazy_recon(recon, fidx)
-        if cfg.md5:
-            from ..hevc.sei import picture_hash_payload, write_sei_rbsp
-            data += write_nal(
-                NalType.SUFFIX_SEI,
-                write_sei_rbsp([(132, picture_hash_payload(
-                    rec.y, rec.u, rec.v))]))
-        ef = EncodedFrame(data=data, recon=rec, poc=0, qp=qp,
-                          bits=len(data) * 8, slice_type="I")
-        ef.display_idx = display_idx
-        ef.pts = display_idx
-        ef.dts = self._coded_count - sps.num_reorder_pics[-1]
-        self._coded_count += 1
-        if cfg.psnr:
-            ef.psnr = _psnr(frame, rec)
-        return ef
+        return bytes(rbsp)
 
-    def _lazy_recon(self, planes, fidx: int) -> LazyYUV:
+    def _lazy_recon(self, planes, fidx: int, poc: int = 0) -> LazyYUV:
         """Device-resident recon -> lazily fetched YUV view cropped to the
         conformance window."""
         l, r, t, b = self.sps.conf_win
@@ -468,7 +685,7 @@ class HevcEncoder:
             return (y[y0:y1, x0:x1], u[y0 // 2:y1 // 2, x0 // 2:x1 // 2],
                     v[y0 // 2:y1 // 2, x0 // 2:x1 // 2])
 
-        return LazyYUV(fetch, poc=0)
+        return LazyYUV(fetch, poc=poc)
 
 
 def sao_decisions(stats, qp: int, tier: int) -> list:

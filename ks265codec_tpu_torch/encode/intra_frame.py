@@ -4,15 +4,18 @@ the slice writer reads.
 
 Copies of the numpy code of ks265codec_tpu/encode/intra_frame.py
 (`tile_region_maps`, `_block_any`, `_cbf_cells8`, `decision_maps8`,
-`fill_intra_maps`, `IntraFrameEncoder._pad` and the part of
-`IntraFrameEncoder` that `apply_coded_planes` needs); that module imports
-jax, so the port keeps its own.
+`fill_intra_maps`, `IntraFrameEncoder._pad`, `_qp_map8` and the part of
+`IntraFrameEncoder` that `apply_coded_planes` and the P-picture encoder
+need), and `decide_frame`, the one-frame call of the port's decision pass
+(K5) that the inter engine reads its intra maps and costs from; that
+module imports jax, so the port keeps its own.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..hevc.tables import chroma_qp
 from .map_writer import EncSyntax
 
 
@@ -130,17 +133,66 @@ def pad_plane(plane, ph: int, pw: int) -> np.ndarray:
     return out
 
 
-class IntraFrameEncoder:
-    """Syntax side of one all-intra frame coded by the batched device
-    path: installs the device pass's levels and decision maps into the
-    FrameState and EncSyntax maps the slice writer reads."""
+def decide_frame(src_y, src_cb, src_cr, qp: int, lam_scale: float = 1.0,
+                 effort: int = 0, nxn: bool = False,
+                 reference: bool = False):
+    """Whole-frame intra decision of one padded frame, as the reference's
+    `decide_frame`: the batched decision pass (K5) on a one-frame batch.
+    Planes are uint8 tensors on the device the pass runs on. Returns the
+    13 maps (split32, mode16, mode32, cplx, split16, mode8, cm8, cm16,
+    cm32, cost8, cost16, mode4, nxn8) as numpy arrays."""
+    from ..ops.decide import MAP_NAMES, decide_frames
+    if effort != 0 or nxn:
+        raise NotImplementedError("the full decision tier (decide_effort "
+                                  "1) and NxN are not ported")
+    maps = decide_frames(src_y[None], src_cb[None], src_cr[None], [qp],
+                         lam_scale, reference=reference)
+    return tuple(maps[k][0].cpu().numpy() for k in MAP_NAMES)
 
-    def __init__(self, fs, sps, pps, hdr):
+
+class IntraFrameEncoder:
+    """Syntax side of one frame coded by the device path: installs the
+    device pass's levels and decision maps into the FrameState and
+    EncSyntax maps the slice writer reads. With source planes and a QP it
+    also holds what the P-picture encoder reads: the padded sources and
+    the chroma QPs."""
+
+    def __init__(self, fs, sps, pps, hdr, src_y=None, src_cb=None,
+                 src_cr=None, qp: int | None = None):
         self.fs = fs
         self.sps = sps
         self.pps = pps
         self.hdr = hdr
         self.syn = EncSyntax(fs)
+        if qp is not None:
+            self.qp = qp
+            self.qp_cb = chroma_qp(qp + pps.cb_qp_offset + hdr.cb_qp_offset)
+            self.qp_cr = chroma_qp(qp + pps.cr_qp_offset + hdr.cr_qp_offset)
+        if src_y is not None:
+            # pad source to the CTU grid by edge replication
+            self.src_y = self._pad(src_y, fs.ph, fs.pw)
+            self.src_cb = self._pad(src_cb, fs.ph // 2, fs.pw // 2)
+            self.src_cr = self._pad(src_cr, fs.ph // 2, fs.pw // 2)
+        self._skip_pre = False
+
+    _pad = staticmethod(pad_plane)
+
+    def _qp_map8(self, shape):
+        """Per-8-cell QP map: base QP + per-CTU AQ offsets when set."""
+        qp_map8 = np.full(shape, self.qp, np.int32)
+        dq = getattr(self, "dqp_ctu", None)
+        if dq is not None:
+            cty = (shape[0] + 7) // 8
+            ctx = (shape[1] + 7) // 8
+            d = np.zeros((cty, ctx), np.int32)
+            d[:dq.shape[0], :dq.shape[1]] = dq[:cty, :ctx]
+            if dq.shape[0] < cty:
+                d[dq.shape[0]:] = d[dq.shape[0] - 1]
+            if dq.shape[1] < ctx:
+                d[:, dq.shape[1]:] = d[:, dq.shape[1] - 1:dq.shape[1]]
+            qp_map8 = qp_map8 + np.repeat(np.repeat(d, 8, 0), 8, 1)[
+                :shape[0], :shape[1]]
+        return np.clip(qp_map8, 0, 51).astype(np.uint8)
 
     def apply_coded_planes(self, log2m, modes8, cmodes8, qp_map8,
                            cy, ccb, ccr) -> None:

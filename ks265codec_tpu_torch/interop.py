@@ -70,6 +70,17 @@ def device_tables(device) -> torch.Tensor:
     return _cache[key]
 
 
+def device_log_table(device, base2: bool = False) -> torch.Tensor:
+    """The reference backend's float32 log (or `jnp.log2` with base2) of
+    the integers 0..32767 on `device` (cached; ops/_logtab.py)."""
+    key = ("log2" if base2 else "log", str(device))
+    if key not in _cache:
+        from .ops._logtab import log2_table, log_table
+        _cache[key] = torch.as_tensor(log2_table() if base2
+                                      else log_table(), device=device)
+    return _cache[key]
+
+
 def device_bits_table(device) -> torch.Tensor:
     """The decision pass's float32 level-rate table on `device` (cached)."""
     key = ("bits", str(device))

@@ -29,8 +29,8 @@ CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
 # Launch counts per kernel, bumped by each wrapper where it launches.
 launches: dict[str, int] = {}
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# C signature of every entry point: all take pointers and ints and end with
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every entry point: pointers, ints and floats, ending with
 # the CUDA stream; all return a cudaError_t as int.
 _SIGNATURES = {
     "ks_decide_pass_a": [_P] * 5 + [_I] * 5 + [_P],
@@ -41,6 +41,19 @@ _SIGNATURES = {
     "ks_intra_recon_level": [_P] * 8 + [_I] * 5 + [_P],
     "ks_sao_stats": [_P] * 6 + [_I] * 8 + [_P],
     "ks_sao_apply": [_P] * 6 + [_I] * 7 + [_P],
+    "ks_la_downsample": [_P] * 2 + [_I] * 3 + [_P],
+    "ks_la_features": [_P] * 3 + [_I] * 3 + [_P],
+    "ks_me_down2": [_P] * 2 + [_I] * 3 + [_P],
+    "ks_me_dense_l2": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "ks_me_refine3": [_P] * 3 + [_I] * 7 + [_P],
+    "ks_me_subpel8": [_P] * 4 + [_I] * 5 + [_F, _P, _P],
+    "ks_inter_decide_tier": [_P] * 25 + [_I] * 8 + [_P],
+    "ks_inter_cand_sads": [_P] * 7 + [_I] * 7 + [_P],
+    "ks_inter_mc": [_P] * 8 + [_I] * 6 + [_P],
+    "ks_inter_tu_class": [_P] * 16 + [_I] * 6 + [_P],
+    "ks_inter_gate": [_P] * 4 + [_I] * 2 + [_P],
+    "ks_inter_finish": [_P] * 18 + [_I] * 6 + [_P],
+    "ks_inter_bs": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

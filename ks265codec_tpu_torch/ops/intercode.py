@@ -1,0 +1,379 @@
+"""Inter coding of one P picture (K17, with K14 inside): MC, the residual
+of every transform unit by TU class, the CU zero-forcing gate, the final
+levels and reconstruction, the seeded intra scan of the picture's intra
+CUs, the boundary strengths and the deblocking filter.
+
+Counterpart of ks265codec_tpu/ops/intercode.py::_inter_code_core (with
+`_code_tu_class`, the chroma branch, and `code_inter_frame_jit`) for
+uni-prediction, SAO off, no sign hiding and no cu_qp_delta (the
+effective-QP chain `_effective_qp4` is then the identity). The
+coefficient planes come back dense; the reference's sparse packing is a
+transfer workaround and is not ported.
+
+The gate `(d_skip - d_coded) <= cu_lam * (bits + 10)` decides which
+residuals are dropped, so its float32 inputs follow the reference
+backend's sequence (ROADMAP.md queue 3): d_skip and d_coded are sums of
+squares in `decide._block_sum` order; a TU's bits are
+fma(3.1, count, 2 * S) with S the sum of `jnp.log2(level)` in
+`_lane_sum` order (one lane per row modulo 8 for n <= 16, `_block_sum`
+at 32); a CU's sums are its luma TU's plus (Cb + Cr) bits, the order in
+which the reference's per-class scatter-adds reach them.
+
+CUDA: csrc/inter_code.cu: one MC launch (one thread block per 8x8 cell),
+one launch per TU class (one thread block per TU: transform, quantise,
+dequantise, inverse transform, the three sums in one thread), one gate
+launch (one thread per CU), one launch per TU class for the final levels
+and reconstruction; then the intra scan's level launches (csrc/
+intra_scan.cu), one launch for the boundary strengths and the two
+deblocking launches (csrc/deblock.cu).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..interop import device_log_table, device_tables
+from . import _build
+from .decide import _block_sum, _tree, fma32
+from .deblock import deblock_frames
+from .mc import mc_planes_plain
+from .transforms import dequant_itx, forward_transform, quantize
+from .wavefront import LevelSchedule, code_intra_frames_into
+
+# the reference's class order: luma n, then its chroma n/2
+CLASS_ORDER = ((True, 8), (False, 4), (True, 16), (False, 8), (True, 32),
+               (False, 16))
+
+
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the trailing (n, n) axes in the reference
+    backend's order for the level-bit sums: for n <= 16 lane r % 8 (r % 4
+    at n = 4) takes row r's samples in column order, rows in order, then
+    the lanes by halving; at n = 32, `_block_sum`."""
+    n = x.shape[-1]
+    if n == 32:
+        return _block_sum(x)
+    L = min(n, 8)
+    acc = x[..., 0:L, 0]
+    for c in range(1, n):
+        acc = acc + x[..., 0:L, c]
+    for r0 in range(L, n, L):
+        for c in range(n):
+            acc = acc + x[..., r0:r0 + L, c]
+    return _tree(acc)
+
+
+def _take(plane: torch.Tensor, xs, ys, n: int) -> torch.Tensor:
+    d = torch.arange(n, device=plane.device)
+    return plane[(ys[:, None] + d)[:, :, None], (xs[:, None] + d)[:, None, :]]
+
+
+def _put(plane: torch.Tensor, blocks, xs, ys, n: int) -> None:
+    d = torch.arange(n, device=plane.device)
+    plane[(ys[:, None] + d)[:, :, None], (xs[:, None] + d)[:, None, :]] = \
+        blocks.to(plane.dtype)
+
+
+def tu_sums(resi: torch.Tensor, rr: torch.Tensor, lev: torch.Tensor):
+    """(d_skip, d_coded, bits) float32 of TUs: residual, reconstructed
+    residual and levels, each (K, n, n) int32."""
+    rf = resi.to(torch.float32)
+    df = (resi - rr).to(torch.float32)
+    a = lev.abs()
+    nz = a > 0
+    lg = device_log_table(lev.device, True)[a.clamp(min=1).long()]
+    S = _lane_sum(torch.where(nz, lg, 0.0))
+    cnt = nz.sum((-2, -1)).to(torch.float32)
+    bits = fma32(torch.tensor(3.1, dtype=torch.float32, device=a.device),
+                 cnt, 2.0 * S)
+    return _block_sum(rf * rf), _block_sum(df * df), bits
+
+
+def _code_class(src, pred, xs, ys, qp, n: int):
+    """Levels, reconstructed residual and the three sums of one class."""
+    log2 = n.bit_length() - 1
+    resi = _take(src, xs, ys, n) - _take(pred, xs, ys, n)
+    lev = quantize(forward_transform(resi, log2), qp, log2, intra=False)
+    rr = dequant_itx(lev, qp, n)
+    return lev, rr, tu_sums(resi, rr, lev)
+
+
+def cu_table(tu_packs: dict, n_cu: int) -> np.ndarray:
+    """(n_cu, 5) int32 per CU: its luma class (index in CLASS_ORDER), its
+    entry there, its chroma class and its Cb and Cr entries."""
+    tab = np.zeros((n_cu, 5), np.int32)
+    for ci, key in enumerate(CLASS_ORDER):
+        pack = tu_packs.get(key)
+        if pack is None:
+            continue
+        cid = np.asarray(pack[3])
+        valid = np.asarray(pack[4]).astype(bool)
+        if key[0]:
+            e = np.nonzero(valid)[0]
+            tab[cid[e], 0] = ci
+            tab[cid[e], 1] = e
+        else:
+            plane = np.asarray(pack[5])
+            for pl, col in ((0, 3), (1, 4)):
+                e = np.nonzero(valid & (plane == pl))[0]
+                tab[cid[e], 2] = ci
+                tab[cid[e], col] = e
+    return tab
+
+
+def bs_maps(cbf4, e2_v, e2_h, etb_v, etb_h, emv_v, emv_h, deblock: bool):
+    """Spec 8.7.2.4 boundary strengths from the final maps and the luma
+    cbf per 4x4: 2 across intra edges, 1 across TU edges with a coded
+    side, else the motion strength."""
+    cbf_l = torch.nn.functional.pad(cbf4, (1, 0))[:, :-1]
+    cbf_t = torch.nn.functional.pad(cbf4, (0, 0, 1, 0))[:-1, :]
+    bs_v = torch.where(e2_v, 2, torch.where(etb_v & (cbf4 | cbf_l), 1,
+                                            emv_v.to(torch.int64)))
+    bs_h = torch.where(e2_h, 2, torch.where(etb_h & (cbf4 | cbf_t), 1,
+                                            emv_h.to(torch.int64)))
+    if not deblock:
+        bs_v, bs_h = torch.zeros_like(bs_v), torch.zeros_like(bs_h)
+    return bs_v.to(torch.uint8), bs_h.to(torch.uint8)
+
+
+# ------------------------------------------------------- plain PyTorch path
+
+def cu_sums(si, pi, tu_packs: dict, n_cu: int):
+    """Per-CU float32 (d_skip, d_coded, bits) (3, n_cu + 1) of the plain
+    path, and each class's (xs, ys, cid, valid, plane, lev, rr). si / pi:
+    (y, cb, cr) int32 source and prediction planes."""
+    dev = si[0].device
+    results = {}
+    acc = torch.zeros((3, n_cu + 1), dtype=torch.float32, device=dev)
+    for key in CLASS_ORDER:
+        pack = tu_packs.get(key)
+        if pack is None:
+            continue
+        is_luma, n = key
+        xs, ys, qp, cid, valid = (a.to(dev) for a in pack[:5])
+        xs, ys, qp, cid = xs.long(), ys.long(), qp.to(torch.int32), \
+            cid.long()
+        valid = valid.bool()
+        a = torch.zeros_like(acc)
+        if is_luma:
+            lev, rr, sums = _code_class(si[0], pi[0], xs, ys, qp, n)
+            for i in range(3):
+                a[i, cid[valid]] = sums[i][valid]
+            plane = None
+        else:
+            plane = pack[5].to(dev).long()
+            lev = torch.zeros((len(xs), n, n), dtype=torch.int32,
+                              device=dev)
+            rr = torch.zeros_like(lev)
+            bits = torch.zeros(len(xs), dtype=torch.float32, device=dev)
+            for pl in (0, 1):
+                m = plane == pl
+                lv, r2, sums = _code_class(si[1 + pl], pi[1 + pl], xs[m],
+                                           ys[m], qp[m], n)
+                lev[m], rr[m], bits[m] = lv, r2, sums[2]
+            # chroma adds rate, not distortion; Cb then Cr per CU
+            for pl in (0, 1):
+                m = valid & (plane == pl)
+                a[2, cid[m]] = a[2, cid[m]] + bits[m]
+        acc = acc + a
+        results[key] = (xs, ys, cid, valid, plane, lev, rr)
+    return acc, results
+
+
+
+def code_inter_frame_plain(src, refs, slot0, mv0, tu_packs, cu_lam,
+                           intra_sched, n_cu: int, h8: int, w8: int,
+                           pic_w: int, pic_h: int, strong: bool):
+    """Steps 1-5 on the plain path: returns (pred, rec, coef, cbf4), each
+    plane set a (y, cb, cr) tuple; rec is pre-deblocking."""
+    dev = src[0].device
+    si = [p.to(torch.int32) for p in src]
+    pred = mc_planes_plain(*refs, slot0, mv0, torch.full_like(slot0, -1),
+                           torch.zeros_like(mv0), False, h8, w8, pic_w, pic_h)
+    pi = [p.to(torch.int32) for p in pred]
+    acc, results = cu_sums(si, pi, tu_packs, n_cu)
+    d_skip, d_coded, bits = acc
+    drop = (d_skip - d_coded) <= cu_lam.to(dev) * (bits + 10.0)
+    rec = [p.clone() for p in pi]
+    coef = [torch.zeros(p.shape, dtype=torch.int16, device=dev)
+            for p in src]
+    cbf4 = torch.zeros((src[0].shape[0] // 4, src[0].shape[1] // 4),
+                       dtype=torch.bool, device=dev)
+    for key in CLASS_ORDER:
+        if key not in results:
+            continue
+        is_luma, n = key
+        xs, ys, cid, valid, plane, lev, rr = results[key]
+        dcu = drop[cid.clamp(0, n_cu)][:, None, None]
+        lev = torch.where(dcu, 0, lev)
+        for pl in ((0,) if is_luma else (1, 2)):
+            m = valid if is_luma else valid & (plane == pl - 1)
+            r = (_take(pi[pl], xs[m], ys[m], n)
+                 + torch.where(dcu[m], 0, rr[m])).clamp(0, 255)
+            _put(rec[pl], r, xs[m], ys[m], n)
+            _put(coef[pl], lev[m], xs[m], ys[m], n)
+        if is_luma:
+            nz = (lev != 0).any(-1).any(-1) & valid
+            n4 = n // 4
+            for k in torch.nonzero(nz)[:, 0].tolist():
+                y4, x4 = int(ys[k]) >> 2, int(xs[k]) >> 2
+                cbf4[y4:y4 + n4, x4:x4 + n4] = True
+    rec = [r.to(torch.uint8) for r in rec]
+    return pred, rec, coef, cbf4
+
+
+# ------------------------------------------------------------- CUDA kernel
+
+def _i32(a, dev):
+    return a.to(device=dev, dtype=torch.int32).contiguous()
+
+
+def mc_planes_cuda(refs, slot0, mv0, h8: int, w8: int, pic_w: int,
+                   pic_h: int):
+    """K14 on the card: the uni-predicted planes of the (h8, w8) cell grid
+    from per-cell motion (`mc_planes_plain` without list 1), one
+    launch of `ks_inter_mc`."""
+    for t in refs:
+        if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("reference stacks must be contiguous uint8 "
+                             "CUDA tensors")
+    dev = refs[0].device
+    R, H, W = refs[0].shape
+    if (H, W) != (8 * h8, 8 * w8):
+        raise ValueError("the cell grid must cover the planes")
+    slot0, mv0 = _i32(slot0, dev), _i32(mv0, dev)
+    pred = [torch.empty(r.shape[1:], dtype=torch.uint8, device=dev)
+            for r in refs]
+    P = _build.ptr
+    _build.check(_build.kernels().ks_inter_mc(
+        P(refs[0]), P(refs[1]), P(refs[2]), P(slot0), P(mv0), P(pred[0]),
+        P(pred[1]), P(pred[2]), h8, w8, H, W, pic_w, pic_h,
+        _build.stream(dev)), "ks_inter_mc")
+    _build.count("inter_mc")
+    return pred
+
+
+def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
+                          intra_sched, n_cu: int, h8: int, w8: int,
+                          pic_w: int, pic_h: int, strong: bool):
+    """Steps 1-5 on the card (see the module note)."""
+    for t in tuple(src) + tuple(refs):
+        if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("planes must be contiguous uint8 CUDA tensors")
+    dev = src[0].device
+    lib = _build.kernels()
+    st = _build.stream(dev)
+    P = _build.ptr
+    tab = device_tables(dev)
+    R, H, W = refs[0].shape
+    pred = mc_planes_cuda(refs, slot0, mv0, h8, w8, pic_w, pic_h)
+    ctab = torch.as_tensor(cu_table(tu_packs, n_cu), device=dev)
+    cls = []
+    sums = torch.zeros((len(CLASS_ORDER), 3, max(
+        [len(p[0]) for p in tu_packs.values()] + [1])),
+        dtype=torch.float32, device=dev)
+    for ci, key in enumerate(CLASS_ORDER):
+        pack = tu_packs.get(key)
+        if pack is None:
+            cls.append(None)
+            continue
+        is_luma, n = key
+        K = len(pack[0])
+        f = [_i32(a, dev) for a in pack[:5]]
+        plane = _i32(pack[5], dev) if not is_luma else \
+            torch.zeros(K, dtype=torch.int32, device=dev)
+        lev = torch.empty((K, n, n), dtype=torch.int32, device=dev)
+        rr = torch.empty_like(lev)
+        _build.check(lib.ks_inter_tu_class(
+            P(src[0]), P(src[1]), P(src[2]), P(pred[0]), P(pred[1]),
+            P(pred[2]), P(f[0]), P(f[1]), P(f[2]), P(plane), P(f[4]),
+            P(lev), P(rr), P(sums[ci]), P(tab),
+            P(device_log_table(dev, True)), K, sums.shape[2], n,
+            int(is_luma), H, W, st), "ks_inter_tu_class")
+        _build.count("inter_tu_class")
+        cls.append((f, plane, lev, rr, K))
+    drop = torch.empty(n_cu + 1, dtype=torch.int32, device=dev)
+    _build.check(lib.ks_inter_gate(P(sums), P(ctab), P(_f32(cu_lam, dev)),
+                                   P(drop), n_cu, sums.shape[2], st),
+                 "ks_inter_gate")
+    _build.count("inter_gate")
+    rec = [p.clone() for p in pred]
+    coef = [torch.zeros(p.shape, dtype=torch.int16, device=dev)
+            for p in src]
+    cbf4 = torch.zeros((H // 4, W // 4), dtype=torch.uint8, device=dev)
+    for key, c in zip(CLASS_ORDER, cls):
+        if c is None:
+            continue
+        is_luma, n = key
+        f, plane, lev, rr, K = c
+        _build.check(lib.ks_inter_finish(
+            P(pred[0]), P(pred[1]), P(pred[2]), P(f[0]), P(f[1]), P(f[3]),
+            P(plane), P(f[4]), P(lev), P(rr), P(drop), P(rec[0]),
+            P(rec[1]), P(rec[2]), P(coef[0]), P(coef[1]), P(coef[2]),
+            P(cbf4), K, n, int(is_luma), n_cu, H, W, st), "ks_inter_finish")
+        _build.count("inter_finish")
+    return pred, rec, coef, cbf4.bool()
+
+
+def _f32(a, dev):
+    return a.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def bs_maps_cuda(cbf4, e2_v, e2_h, etb_v, etb_h, emv_v, emv_h,
+                 deblock: bool):
+    dev = cbf4.device
+    h4, w4 = cbf4.shape
+    u8 = [a.to(device=dev, dtype=torch.uint8).contiguous()
+          for a in (cbf4, e2_v, e2_h, etb_v, etb_h, emv_v, emv_h)]
+    bs_v = torch.empty((h4, w4), dtype=torch.uint8, device=dev)
+    bs_h = torch.empty_like(bs_v)
+    P = _build.ptr
+    _build.check(_build.kernels().ks_inter_bs(
+        *(P(a) for a in u8), P(bs_v), P(bs_h), h4, w4, int(deblock),
+        _build.stream(dev)), "ks_inter_bs")
+    _build.count("inter_bs")
+    return bs_v, bs_h
+
+
+# ------------------------------------------------------------- entry point
+
+def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
+                     intra_sched: LevelSchedule | None, bs_in, qp4,
+                     n_cu: int, h8: int, w8: int, pic_w: int, pic_h: int,
+                     boff: int, toff: int, cbo: int, cro: int,
+                     deblock: bool, strong: bool, reference: bool = False,
+                     want_pred: bool = False):
+    """Code one P picture. src (y, cb, cr) uint8 planes, refs (R, ...)
+    uint8 stacks; slot0 (h8*w8,), mv0 (h8*w8, 2) per-cell motion (slot
+    -1 never reaches here: intra cells carry slot 0); tu_packs:
+    {(is_luma, n): (xs, ys, qp, cu_id, valid[, plane])}; cu_lam
+    (n_cu + 1,) float32; intra_sched: the intra CUs' schedule or None;
+    bs_in: (e2_v, e2_h, etb_v, etb_h, emv_v, emv_h) per 4x4; qp4 per 4x4.
+    Returns ((y, cb, cr) deblocked uint8 planes, (y, cb, cr) int16
+    levels[, (y, cb, cr) MC prediction]). CUDA planes launch the kernels;
+    CPU planes, or reference=True, run the plain version."""
+    dev = src[0].device
+    plain = dev.type != "cuda" or reference
+    fn = code_inter_frame_plain if plain else code_inter_frame_cuda
+    pred, rec, coef, cbf4 = fn(src, refs, slot0.to(dev), mv0.to(dev),
+                               tu_packs, cu_lam, intra_sched, n_cu, h8, w8,
+                               pic_w, pic_h, strong)
+    if intra_sched is not None:
+        rec = [r[None].contiguous() for r in rec]
+        coef = [c[None].contiguous() for c in coef]
+        code_intra_frames_into(tuple(s[None].contiguous() for s in src),
+                               rec, coef, intra_sched, strong,
+                               reference=reference)
+        rec = [r[0] for r in rec]
+        coef = [c[0] for c in coef]
+    bs_in = [a.to(dev) for a in bs_in]
+    bs_fn = bs_maps if plain else bs_maps_cuda
+    bs_v, bs_h = bs_fn(cbf4, *bs_in, deblock)
+    out = deblock_frames(*(r[None] for r in rec), bs_v[None], bs_h[None],
+                         qp4.to(device=dev, dtype=torch.uint8)[None], boff,
+                         toff, cbo, cro, pic_w, pic_h, reference=reference)
+    planes = tuple(o[0] for o in out)
+    if want_pred:
+        return planes, tuple(coef), tuple(pred)
+    return planes, tuple(coef)

@@ -112,40 +112,52 @@ class WavefrontIntraCoder:
              sps) -> LevelSchedule:
         """Schedules of all frames of a batch as one LevelSchedule. items:
         dicts with log2m/modes8/cmodes8/qp_map8 (and tile8)."""
-        cqp_cb = np.array([chroma_qp(min(q + qp_cb_off, 57))
-                           for q in range(64)], np.int32)
-        cqp_cr = np.array([chroma_qp(min(q + qp_cr_off, 57))
-                           for q in range(64)], np.int32)
-        F = len(items)
         per_frame = []
-        n_levels = 0
         for it in items:
-            ox, oy, osz, olv, oal, oac, oat = self.build_schedule(
+            sched = self.build_schedule(
                 it["log2m"], sps.width, sps.height, sps.log2_ctb,
                 sps.log2_min_cb, tile8=it.get("tile8"))
-            r8, c8 = oy >> 3, ox >> 3
-            qp = it["qp_map8"][r8, c8].astype(np.int32)
-            rec = np.stack([ox, oy, osz, it["modes8"][r8, c8],
-                            it["cmodes8"][r8, c8], qp, cqp_cb[qp],
-                            cqp_cr[qp], oal.astype(np.int64),
-                            oac, oat.astype(np.int64),
-                            np.ones_like(ox)], 1).astype(np.int32)
-            order = np.argsort(olv, kind="stable")
-            lv = olv[order]
-            slot = np.arange(len(lv)) - np.searchsorted(lv, lv)
-            per_frame.append((rec[order], lv, slot))
-            if len(lv):
-                n_levels = max(n_levels, int(lv[-1]) + 1)
-        counts = np.zeros((n_levels, F), np.int64)
-        for f, (_, lv, _) in enumerate(per_frame):
-            np.add.at(counts[:, f], lv, 1)
-        kmax = counts.max(1) if F else np.zeros(0, np.int64)
-        bases = np.concatenate([[0], np.cumsum(kmax * F)])
-        recs = np.zeros((int(bases[-1]), NFIELDS), np.int32)
-        for f, (rec, lv, slot) in enumerate(per_frame):
-            recs[bases[lv] + f * kmax[lv] + slot] = rec
-        levels = [(int(bases[i]), int(kmax[i])) for i in range(n_levels)]
-        return LevelSchedule(recs, levels, F)
+            per_frame.append((sched, it["modes8"], it["cmodes8"],
+                              it["qp_map8"]))
+        return pack_records(per_frame, qp_cb_off, qp_cr_off)
+
+
+def pack_records(per_frame, qp_cb_off: int, qp_cr_off: int) -> LevelSchedule:
+    """One LevelSchedule from per-frame (schedule, modes8, cmodes8,
+    qp_map8): schedule is (x, y, size, level, avail_l, avail_c, avail_t)
+    per CU, as `build_schedule` returns it or a subset of it with levels
+    of its own (the intra CUs of a P picture)."""
+    cqp_cb = np.array([chroma_qp(min(q + qp_cb_off, 57))
+                       for q in range(64)], np.int32)
+    cqp_cr = np.array([chroma_qp(min(q + qp_cr_off, 57))
+                       for q in range(64)], np.int32)
+    F = len(per_frame)
+    recs_f = []
+    n_levels = 0
+    for (ox, oy, osz, olv, oal, oac, oat), modes8, cmodes8, qp_map8 in \
+            per_frame:
+        r8, c8 = oy >> 3, ox >> 3
+        qp = qp_map8[r8, c8].astype(np.int32)
+        rec = np.stack([ox, oy, osz, modes8[r8, c8], cmodes8[r8, c8], qp,
+                        cqp_cb[qp], cqp_cr[qp], oal.astype(np.int64),
+                        oac, oat.astype(np.int64),
+                        np.ones_like(ox)], 1).astype(np.int32)
+        order = np.argsort(olv, kind="stable")
+        lv = olv[order]
+        slot = np.arange(len(lv)) - np.searchsorted(lv, lv)
+        recs_f.append((rec[order], lv, slot))
+        if len(lv):
+            n_levels = max(n_levels, int(lv[-1]) + 1)
+    counts = np.zeros((n_levels, F), np.int64)
+    for f, (_, lv, _) in enumerate(recs_f):
+        np.add.at(counts[:, f], lv, 1)
+    kmax = counts.max(1) if F else np.zeros(0, np.int64)
+    bases = np.concatenate([[0], np.cumsum(kmax * F)])
+    recs = np.zeros((int(bases[-1]), NFIELDS), np.int32)
+    for f, (rec, lv, slot) in enumerate(recs_f):
+        recs[bases[lv] + f * kmax[lv] + slot] = rec
+    levels = [(int(bases[i]), int(kmax[i])) for i in range(n_levels)]
+    return LevelSchedule(recs, levels, F)
 
 
 # ------------------------------------------------------- plain PyTorch path
@@ -282,16 +294,33 @@ def recon_intra_frames_plain(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
 def code_intra_frames_cuda(src_y, src_cb, src_cr, sched: LevelSchedule,
                            strong: bool, tables: torch.Tensor):
     """The scan on the card: one launch of `ks_intra_level` per level."""
-    for t in (src_y, src_cb, src_cr):
-        if t.dtype != torch.uint8 or not t.is_contiguous() or not t.is_cuda:
-            raise ValueError("sources must be contiguous uint8 CUDA tensors")
-    F, H, W = src_y.shape
-    if src_cb.shape != (F, H // 2, W // 2) or src_cr.shape != src_cb.shape:
-        raise ValueError("chroma planes must be (F, H/2, W/2)")
-    lib = _build.kernels()
     recs = [torch.zeros_like(p) for p in (src_y, src_cb, src_cr)]
     levs = [torch.zeros(p.shape, dtype=torch.int16, device=p.device)
             for p in (src_y, src_cb, src_cr)]
+    code_intra_frames_into_cuda((src_y, src_cb, src_cr), recs, levs, sched,
+                                strong, tables)
+    return tuple(recs), tuple(levs)
+
+
+def code_intra_frames_into_cuda(srcs, recs, levs, sched: LevelSchedule,
+                                strong: bool, tables: torch.Tensor) -> None:
+    """`code_intra_frames_into` on the card: one launch of
+    `ks_intra_level` per level, in place."""
+    src_y, src_cb, src_cr = srcs
+    for t in tuple(srcs) + tuple(recs):
+        if t.dtype != torch.uint8 or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError("planes must be contiguous uint8 CUDA tensors")
+    for t in levs:
+        if t.dtype != torch.int16 or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError("level planes must be contiguous int16 CUDA")
+    F, H, W = src_y.shape
+    if src_cb.shape != (F, H // 2, W // 2) or src_cr.shape != src_cb.shape:
+        raise ValueError("chroma planes must be (F, H/2, W/2)")
+    if any(r.shape != p.shape for r, p in zip(recs, srcs)) or \
+            any(lv.shape != p.shape for lv, p in zip(levs, srcs)):
+        raise ValueError("reconstruction and level planes must match the "
+                         "sources")
+    lib = _build.kernels()
     rec_t = sched.recs.contiguous()
     st = _build.stream(src_y.device)
     P = _build.ptr
@@ -303,7 +332,6 @@ def code_intra_frames_cuda(src_y, src_cb, src_cr, sched: LevelSchedule,
             P(tables), kmax, F, H, W, int(strong), st)
         _build.check(rc, "ks_intra_level")
         _build.count("intra_level")
-    return tuple(recs), tuple(levs)
 
 
 def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
@@ -355,3 +383,20 @@ def code_intra_frames(src_y, src_cb, src_cr, sched: LevelSchedule,
     from ..interop import device_tables
     return code_intra_frames_cuda(src_y, src_cb, src_cr, sched, strong,
                                   device_tables(src_y.device))
+
+
+def code_intra_frames_into(srcs, recs, levs, sched: LevelSchedule,
+                           strong: bool, reference: bool = False) -> None:
+    """The intra coding scan in place over existing planes (F, H, W):
+    srcs and recs uint8, levs int16. Only the scheduled CUs are coded, and
+    they read neighbours that no CU of the schedule writes from the planes
+    as given (the seeded scan of the intra CUs of a P picture). CUDA
+    tensors launch the kernel; CPU tensors, or reference=True, run the
+    plain version."""
+    sched = sched.to(srcs[0].device)
+    if srcs[0].device.type != "cuda" or reference:
+        _scan_plain(srcs, recs, levs, sched, strong)
+        return
+    from ..interop import device_tables
+    code_intra_frames_into_cuda(srcs, recs, levs, sched, strong,
+                                device_tables(srcs[0].device))

@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small shapes chip_smoke.py does not cover (odd picture sizes, QP 0 and
-51, deblock offsets, SAO on chroma only, sparse random levels), and the
-encoder and decoder on the kernels against themselves on the plain
-versions. Marked `cuda`: they skip where torch finds no CUDA
-device. On the card (no jax needed):
+51, deblock offsets, SAO on chroma only, sparse random levels), the
+low-delay P kernels (K12, K13, K15, K17 with K14) on a 128x96 IPPP
+encode's inputs, and the encoder and decoder on the kernels against
+themselves on the plain versions. Marked `cuda`: they skip where torch
+finds no CUDA device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
@@ -234,3 +235,133 @@ def test_sao_encode_and_decode_kernels_match_plain(dev):
         dec = HevcDecoder(device=dev, reference=reference)
         assert [frame_md5(f) for f in dec.decode_all(a)] == want
         assert dec.fast_pictures == len(frames)
+
+
+# ------------------------------------------------ the low-delay P path
+
+def _ippp_cfg(**over):
+    return EncoderConfig(**dict(dict(
+        width=128, height=96, preset="ultrafast", latency="zerolatency",
+        rc=0, qp=30, intra_period=0, sao=0), **over))
+
+
+def _moving(n, w, h, seed):
+    """Moving content with a block of fresh noise from the second half on,
+    so that P pictures hold intra CUs."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(n):
+        y = (120 + 55 * np.sin((xx + 5 * t) / 29.0)
+             + 35 * np.cos((yy - 3 * t) / 23.0))
+        disc = (yy - h // 2) ** 2 + (xx - w // 3 - 7 * t) ** 2
+        y[disc < (h // 5) ** 2] = 215
+        if t >= n // 2:
+            y[:h // 4, :w // 4] = rng.randint(0, 255, (h // 4, w // 4))
+        y = np.clip(y + rng.randn(h, w) * 2.5, 0, 255).astype(np.uint8)
+        u = np.clip(128 + 27 * np.sin((xx[::2, ::2] + 3 * t) / 37.0), 0, 255)
+        v = np.clip(128 + 27 * np.cos((yy[::2, ::2] - 2 * t) / 41.0), 0, 255)
+        out.append(YUVFrame(y, u.astype(np.uint8), v.astype(np.uint8),
+                            poc=t))
+    return out
+
+
+def test_lookahead_kernel_matches_plain(dev):
+    from ks265codec_tpu_torch.ops import lookahead as tla
+    rng = np.random.RandomState(2)
+    y = torch.from_numpy(_planes(rng, 3, 144, 256)).to(dev)
+    half = tla.downsample2x(y)
+    assert torch.equal(half, tla.downsample2x(y, reference=True))
+    cur, prev = half[1:].contiguous(), half[:-1].contiguous()
+    for want_tree in (False, True):
+        got = tla.frame_features_batch(cur, prev, want_tree=want_tree)
+        want = tla.frame_features_batch(cur, prev, want_tree=want_tree,
+                                        reference=True)
+        assert torch.equal(got, want)
+    assert torch.equal(tla.frame_features_first(half[0]),
+                       tla.frame_features_first(half[0], reference=True))
+
+
+@pytest.mark.parametrize("pic_h", [128, 112])
+def test_motion_search_kernel_matches_plain(dev, pic_h):
+    from ks265codec_tpu_torch.ops import me2
+    f = _moving(2, 192, 128, 3)
+    src = torch.from_numpy(f[1].y).to(dev)
+    refs = torch.from_numpy(f[0].y[None].copy()).to(dev)
+    for lam in (2.3, 9.1):
+        got = me2.me_fused(src, refs, 64, lam, 192, pic_h)
+        want = me2.me_fused(src, refs, 64, lam, 192, pic_h, reference=True)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _record_inter_ops(frames, dev):
+    """Encode on the plain versions on the card, recording the arguments
+    of every K15 and K17 call."""
+    from ks265codec_tpu_torch.ops import intercode, interdecide
+    calls = {"decide": [], "snap": [], "code": []}
+    orig = (interdecide.decide_tiers, interdecide.snap_sads,
+            intercode.code_inter_frame)
+
+    def spy(key, fn):
+        def g(*a, **k):
+            calls[key].append((a, dict(k)))
+            return fn(*a, **k)
+        return g
+
+    interdecide.decide_tiers = spy("decide", orig[0])
+    interdecide.snap_sads = spy("snap", orig[1])
+    intercode.code_inter_frame = spy("code", orig[2])
+    try:
+        encode_sequence(frames, _ippp_cfg(), device=dev, reference=True)
+    finally:
+        (interdecide.decide_tiers, interdecide.snap_sads,
+         intercode.code_inter_frame) = orig
+    return calls
+
+
+def test_inter_decide_and_code_kernels_match_plain(dev):
+    """K15 (tier decisions and snap SADs) and K17 (with K14's prediction)
+    on the inputs of a 6-frame 128x96 IPPP encode."""
+    from ks265codec_tpu_torch.ops import intercode, interdecide
+    from ks265codec_tpu_torch.ops.mc import mc_planes_plain
+    calls = _record_inter_ops(_moving(6, 128, 96, 4), dev)
+    assert calls["decide"] and calls["code"]
+    for a, k in calls["decide"]:
+        got = interdecide.decide_tiers(*a, **dict(k, reference=False))
+        want = interdecide.decide_tiers(*a, **dict(k, reference=True))
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert torch.equal(x.cpu(), y.cpu())
+    for a, k in calls["snap"]:
+        got = interdecide.snap_sads(*a, **dict(k, reference=False))
+        want = interdecide.snap_sads(*a, **dict(k, reference=True))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    n_intra = 0
+    for a, k in calls["code"]:
+        got = intercode.code_inter_frame(*a, **dict(k, reference=False),
+                                         want_pred=True)
+        want = intercode.code_inter_frame(*a, **dict(k, reference=True),
+                                          want_pred=True)
+        for x, y in zip(got[0] + got[1] + got[2], want[0] + want[1]
+                        + want[2]):
+            assert torch.equal(x, y)
+        src, refs, slot0, mv0 = a[:4]
+        h8, w8, pic_w, pic_h = a[10:14]
+        mc = mc_planes_plain(*refs, slot0.to(dev), mv0.to(dev),
+                             torch.full_like(slot0, -1).to(dev),
+                             torch.zeros_like(mv0).to(dev), False, h8, w8,
+                             pic_w, pic_h)
+        for x, y in zip(got[2], mc):
+            assert torch.equal(x, y)
+        n_intra += a[6] is not None
+    assert n_intra > 0
+
+
+def test_ippp_encode_kernels_match_plain(dev):
+    frames = _moving(4, 128, 96, 5)
+    a, ra = encode_sequence(frames, _ippp_cfg(), device=dev)
+    b, rb = encode_sequence(frames, _ippp_cfg(), device=dev, reference=True)
+    assert a == b
+    assert [frame_md5(r) for r in ra] == [frame_md5(r) for r in rb]

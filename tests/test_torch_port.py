@@ -26,6 +26,7 @@ HOST_COPIES = [
     "encode/config.py", "encode/map_writer.py", "encode/sbac.py",
     "utils/yuv.py", "utils/trace.py", "encode/sao.py", "utils/log.py",
     "decode/filters.py", "utils/pool.py", "utils/md5.py", "cli/__init__.py",
+    "encode/gop.py", "encode/rc.py", "encode/merge_vec.py", "decode/inter.py",
 ]
 
 

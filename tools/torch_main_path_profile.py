@@ -1,13 +1,17 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Two runs, each profiled the same way after a warm-up: the encode of the
+Three runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
-QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames)
-and the decode of the stream it writes. Each is run once plain for the
-fps, once with the stage trace on (host wall time per stage: for the
-encode upload, decide, code, deblock, SAO statistics, the host SAO
-decision, SAO apply, level fetch and slice writing; for the decode the
-reconstruction, deblocking and SAO of the fast path), once under
+QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
+the decode of the stream it writes, and the low-delay P encode of
+chip_smoke.py's inter path (1280x720, ultrafast, zerolatency, QP 30,
+intra_period 0, SAO off, 24 synthetic frames: one IDR, then P pictures).
+Each is run once plain for the fps, once with the stage trace on (host
+wall time per stage: for the all-intra encode upload, decide, code,
+deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
+and slice writing; for the decode the reconstruction, deblocking and SAO
+of the fast path; for the P encode the inter engine's stages `inter.*`
+and slice writing), once under
 torch.profiler for the device time of every kernel and the device's busy
 share of the wall time, and once under cProfile for the host functions
 that take the wall time (cProfile slows Python calls, so its times are
@@ -42,6 +46,18 @@ from ks265codec_tpu_torch.utils.yuv import YUVFrame  # noqa: E402
 def encode(frames):
     enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="ultrafast",
                                     qp=27, intra_period=1, tiles="8x6"))
+    out = []
+    for f in frames:
+        out += enc.encode_frame(f)
+    out += enc.flush()
+    torch.cuda.synchronize()
+    return out
+
+
+def encode_ippp(frames):
+    enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="ultrafast",
+                                    latency="zerolatency", rc=0, qp=30,
+                                    intra_period=0, frame_rate=30, sao=0))
     out = []
     for f in frames:
         out += enc.encode_frame(f)
@@ -120,6 +136,9 @@ def main() -> int:
     profile("encode", lambda: encode(frames), len(frames))
     decode(stream)                                      # warm-up
     profile("decode", lambda: decode(stream), len(frames))
+    ippp = frames[:24]
+    encode_ippp(ippp[:4])                               # warm-up
+    profile("P encode", lambda: encode_ippp(ippp), len(ippp))
     return 0
 
 
