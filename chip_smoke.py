@@ -23,8 +23,10 @@ port's package is not beside it. Phases, each printed as one line:
      feature maps and the packed head), K13 motion search (motion and
      costs), K15 inter decision (both decision iterations and every
      merge-snap call), K14 MC (equal to the plain version and to the
-     prediction K17 builds) and K17 inter coding (recon, levels and
-     prediction, with the seeded K6 scan and K7);
+     prediction K17 builds), K17 inter coding (recon, levels, SAO
+     parameters and prediction, with the seeded K6 scan, K7 and SAO) and
+     K16 SAO decision on K8's statistics of its deblocked planes at tier
+     1 (the path's) and tier 4;
   4. the main path: HevcEncoder with bench.py's configuration (1280x720,
      ultrafast, QP 27, all-intra, tiles 8x6, SAO from the preset) on 32
      frames, once to warm up and once timed with the launch counts reset
@@ -39,19 +41,30 @@ port's package is not beside it. Phases, each printed as one line:
      pictures decode the same with reference=True;
   6. the SAO-off encode (4 frames): K5, K6 and K7 launched, kernel
      stream == plain stream;
-  7. the low-delay P path (BASELINE.json config 2 with SAO off:
-     ultrafast, zerolatency, QP 30, intra_period 0): 8 frames on the
-     kernels give the plain versions' stream and recons; then, after a
-     warm-up, one timed 24-frame encode (bench.py's INTER_FRAMES) with
-     the launch counts reset just before: K5, K6, K7, K12, K13, K15, K14
-     and K17 must have launched, luma PSNR > 30 dB;
-  8. the CLIs: app_encoder on 8 frames of a .yuv launches every encode
+  7. the low-delay P path (BASELINE.json config 2: ultrafast,
+     zerolatency, QP 30, intra_period 0, SAO from the preset, tier 1):
+     the SAO-off P path on 4 frames gives the plain versions' stream; 8
+     frames on the kernels give the plain versions' stream and recons;
+     then, after a warm-up, one timed 24-frame encode (bench.py's
+     INTER_FRAMES) with the launch counts reset just before: K5, K6, K7,
+     K8, K9, K12, K13, K15, K14, K17 and K16 must have launched, luma
+     PSNR > 30 dB;
+  8. the P decode: HevcDecoder on the card decodes the timed IPPP stream
+     once recording K18's inputs, then once timed with the launch counts
+     reset: all 24 pictures through the fast path, every frame's md5 equal
+     to the encoder's reconstruction, K14, K18, K7 and K9 launched; the
+     first 4 pictures decode the same with reference=True; then K18
+     against its plain version on the recorded P picture with the most
+     intra CUs;
+  9. the CLIs: app_encoder on 8 frames of a .yuv launches every encode
      kernel and writes HevcEncoder's bytes, app_decoder -md5 1 launches
-     K11, K7 and K9 and prints the encoder's md5s, and app_encoder with
-     -latency zerolatency -iper 0 -sao 0 on 4 frames launches the inter
-     kernels and writes HevcEncoder's bytes.
+     K11, K7 and K9 and prints the encoder's md5s, app_encoder with
+     -latency zerolatency -iper 0 on 4 frames launches the inter kernels
+     and K16 and writes HevcEncoder's bytes, and app_decoder -md5 1 on
+     that stream launches K18 and prints the encoder's md5s.
 The line before the last is the JSON kernel table with the main path's
-encode and decode fps and the low-delay P path's fps; the last line is
+encode and decode fps and the low-delay P path's encode and decode fps;
+the last line is
 the device JSON. Nothing here
 imports jax or ks265codec_tpu.
 """
@@ -76,13 +89,16 @@ import torch
 W, H, FRAMES = 1280, 720, 32
 INTER_FRAMES = 24       # bench.py's inter leg
 INTER_ROWS = ("lookahead", "motion_search", "inter_decide", "inter_mc",
-              "inter_code")
+              "inter_code", "sao_decide")
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
 # SMs x 64 INT32 lanes per SM (Hopper SM) x 1.98 GHz boost clock, the clock
-# behind the data sheet's 67 TFLOP/s FP32 (128 FP32 lanes, FMA as 2). The
-# kernels' work is int32; a multiply-add is one IMAD and counts as one.
+# behind the data sheet's 67 TFLOP/s FP32. FP32 rate: 132 SMs x 128 FP32
+# lanes x 1.98 GHz (that data sheet figure with an FMA counted as one).
+# Most of the kernels' work is int32: a multiply-add is one IMAD and
+# counts as one. K16's is float32 (an FFMA counts as one).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
 
 
 def synth_frames(n: int):
@@ -126,8 +142,15 @@ def cuda_ms(fn, reps: int = 5, warm: bool = True) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT32_OPS_PER_S * 1e3
+def bound_ms(nbytes: float, ops: float,
+             fp_ops: float = 0.0) -> tuple[float, str]:
+    """Least time in ms: the bytes over the HBM rate, or the operations
+    over the instruction rates, whichever is larger. ops are int32, fp_ops
+    float32; an SM runs 128 lanes a cycle, of which 64 can be int32, so
+    mixed work takes at least (ops + fp_ops) at the FP32 rate and its
+    int32 part at least ops at the INT32 rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(ops / INT32_OPS_PER_S, (ops + fp_ops) / FP32_OPS_PER_S) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -174,12 +197,14 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     from ks265codec_tpu_torch.ops import interdecide as tid
     from ks265codec_tpu_torch.ops import lookahead as tla
     from ks265codec_tpu_torch.ops import me2
-    from ks265codec_tpu_torch.ops.mc import mc_planes_plain
+    from ks265codec_tpu_torch.ops import saodecide as tsd
+    from ks265codec_tpu_torch.ops import saostats as sst
+    from ks265codec_tpu_torch.ops.mc import mc_planes_cuda, mc_planes_plain
     rows = {}
 
     def row(name, source, replaces, err, ms, plain, nbytes, ops, counters,
-            required=None):
-        bnd, by = bound_ms(nbytes, ops)
+            required=None, fp_ops=0.0):
+        bnd, by = bound_ms(nbytes, ops, fp_ops)
         rows[name] = dict(name=name, route="cuda",
                           source=f"ks265codec_tpu_torch/csrc/{source}",
                           replaces=f"ks265codec_tpu/{replaces}",
@@ -300,21 +325,24 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
           f"the first): equal, kernel {ms:.3f} ms, plain {plain:.3f} ms "
           f"(first call), bound {bnd:.4f} ms ({by})", flush=True)
 
-    # K17 (with the seeded K6 and K7) and K14 inside it
+    # K17 (with the seeded K6, K7 and SAO: K8 -> K16 -> K9) and K14
+    # inside it
     a, k = calls["code_inter_frame"][-1]
+    if k.get("sao") is None:
+        raise AssertionError("the P path ran K17 without SAO")
     gk = tic.code_inter_frame(*a, **dict(k, reference=False),
                               want_pred=True)
     gp = tic.code_inter_frame(*a, **dict(k, reference=True), want_pred=True)
     torch.cuda.synchronize()
-    for part, x, y in zip(("recon", "levels", "prediction"), gk, gp):
-        for c, u, v in zip("YUV", x, y):
+    for part, x, y in zip(("recon", "levels", "SAO parameters",
+                           "prediction"), gk, gp):
+        for c, u, v in zip(range(4), x, y):
             if not torch.equal(u, v):
-                raise AssertionError(f"K17 inter code: {part} plane {c} "
-                                     "differs")
+                raise AssertionError(f"K17 inter code: {part} {c} differs")
     src, refs, slot0, mv0 = a[:4]
     h8, w8, pic_w, pic_h = a[10:14]
     mca = (refs, slot0.to(dev), mv0.to(dev), h8, w8, pic_w, pic_h)
-    mk = tic.mc_planes_cuda(*mca)
+    mk = mc_planes_cuda(*mca)
 
     def mc_plain():
         return mc_planes_plain(*refs, mca[1], mca[2],
@@ -323,10 +351,10 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
                                pic_w, pic_h)
 
     mp = mc_plain()
-    for c, u, v, w in zip("YUV", mk, mp, gk[2]):
+    for c, u, v, w in zip("YUV", mk, mp, gk[3]):
         if not torch.equal(u, v) or not torch.equal(u, w):
             raise AssertionError(f"K14 MC: plane {c} differs")
-    ms = cuda_ms(lambda: tic.mc_planes_cuda(*mca))
+    ms = cuda_ms(lambda: mc_planes_cuda(*mca))
     plain = cuda_ms(mc_plain, warm=False)
     npx = src[0].numel() * 1.5
     # operations: the separable filters this run's motion needs (mc_ops)
@@ -345,24 +373,177 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     plain = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
                                                             reference=True)),
                     reps=3, warm=False)
+    # K8's statistics of the first P picture's deblocked planes (K17
+    # without SAO) against its sources, at a tier; K17's SAO input at the
+    # path's tier, and K16's below
+    tier, qp, cs = k["sao"]
+    deb, _, _ = tic.code_inter_frame(*a, **dict(k, sao=None))
+
+    def sao_stats(tier):
+        ncl, bo = (2 if tier <= 1 else 4), tier >= 3
+        stats = []
+        for r, x, sh in list(zip(deb, src, (0, 1, 1)))[:3 if bo else 1]:
+            st = sst.sao_stats_frames(r[None], x[None], pic_w >> sh,
+                                      pic_h >> sh, cs >> sh, ncl, bo)
+            stats.append(tuple(t[0] if t is not None else None for t in st))
+        return stats
+
     # operations: MC as K14's, per coded TU sample the forward and inverse
     # transforms (4 stages of n multiply-adds, matrix form) and about 10
-    # for residual, quantisation, dequantisation and reconstruction; bytes:
-    # the picture, the reference, the recon and the int16 levels once each
+    # for residual, quantisation, dequantisation and reconstruction, and
+    # SAO as K8's, K16's and K9's rows count it (this run's tier,
+    # statistics and type maps; K16's at the FP32 rate); bytes: the
+    # picture, the reference, the recon and the int16 levels once each
     tu_ops = sum(int(p[4].sum()) * n * n * (4 * n + 10)
                  for (_, n), p in a[4].items())
+    ncl = 2 if tier <= 1 else 4
+    sao_ops = (src[0].numel() * 15.0 * ncl
+               + 12.0 * int((gk[2][0][0] != 0).sum()) * cs * cs)
     bnd, by = row("inter_code", "inter_code.cu", "ops/intercode.py:141",
-                  max(max_abs_err(gk[0], gp[0]), max_abs_err(gk[1], gp[1])),
+                  max(max_abs_err(gk[0], gp[0]), max_abs_err(gk[1], gp[1]),
+                      max_abs_err(gk[2], gp[2])),
                   ms, plain, npx * (1 + 1 + 1 + 2),
-                  mc_total + 3 * npx + tu_ops,
+                  mc_total + 3 * npx + tu_ops + sao_ops,
                   ["inter_tu_class", "inter_gate", "inter_finish",
-                   "inter_bs"])
+                   "inter_bs"],
+                  fp_ops=decide_ops(sao_stats(tier), tier, gk[2]))
     print(f"phase K17 inter code (seeded intra scan "
-          f"{'with' if a[6] is not None else 'without'} intra CUs): recon, "
-          f"levels and prediction equal, kernel {ms:.3f} ms (with K14, the "
-          f"seeded K6 and K7), plain {plain:.3f} ms, bound {bnd:.4f} ms "
-          f"({by})", flush=True)
+          f"{'with' if a[6] is not None else 'without'} intra CUs, SAO tier "
+          f"{tier}): recon, levels, SAO parameters and prediction equal, "
+          f"kernel {ms:.3f} ms (with K14, the seeded K6, K7, K8, K16 and "
+          f"K9), plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
+
+    # K16 on those statistics: tier 1 (the path's) and tier 4 (all
+    # classes, band offset, chroma)
+    for tier in (1, 4):
+        stats = sao_stats(tier)
+        dk = tsd.sao_decide_cuda(stats, qp, tier)
+        dp = tsd.sao_decide_plain(stats, qp, tier)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("type", "offs", "bpos", "eocl"), dk, dp):
+            if not torch.equal(x, y):
+                raise AssertionError(f"K16 SAO decide (tier {tier}): {name} "
+                                     "differs")
+        ms = cuda_ms(lambda: tsd.sao_decide_cuda(stats, qp, tier))
+        plain = cuda_ms(lambda: tsd.sao_decide_plain(stats, qp, tier),
+                        warm=False)
+        # bytes: the statistics read once, the parameters written once;
+        # operations: decide_ops of these statistics, float32
+        nbytes = sum(t.numel() * 4 for st in stats for t in st
+                     if t is not None) + sum(t.numel() for t in dk)
+        fp_ops = decide_ops(stats, tier, dp)
+        if tier == 1:
+            bnd, by = row("sao_decide", "sao_decide.cu",
+                          "ops/saodecide.py:54", max_abs_err(dk, dp), ms,
+                          plain, nbytes, 0.0, ["sao_decide"], fp_ops=fp_ops)
+        else:
+            bnd, by = bound_ms(nbytes, 0.0, fp_ops)
+        print(f"phase K16 SAO decide (tier {tier}, {dk[0].shape[1]}x"
+              f"{dk[0].shape[2]} CTBs, {int((dk[0] != 0).sum())} SAO-on "
+              f"CTB planes, {fp_ops:.0f} float32 operations): equal, kernel "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms "
+              f"({by})", flush=True)
     return rows
+
+
+def k18_phase(calls: list, card: str) -> dict:
+    """K18 (`recon_inter_filter`: K14, `ks_inter_recon`, the seeded K11, K7,
+    K9) against its plain version on the recorded P picture of the stream
+    with the most intra CUs; returns its table row."""
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    with_intra = [(int((np.asarray(c[0][9].recs)[:, wf.VALID] == 1).sum()), i)
+                  for i, c in enumerate(calls) if c[0][9] is not None]
+    if not with_intra:
+        raise AssertionError("no decoded P picture holds intra CUs")
+    n_intra, i = max(with_intra)
+    a, k = calls[i]
+    gk = wf.recon_inter_filter(*a, **dict(k, reference=False))
+    gp = wf.recon_inter_filter(*a, **dict(k, reference=True))
+    torch.cuda.synchronize()
+    for c, x, y in zip("YUV", gk, gp):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K18 inter recon: plane {c} differs")
+    ms = cuda_ms(lambda: wf.recon_inter_filter(*a, **dict(k,
+                                                          reference=False)))
+    plain = cuda_ms(lambda: wf.recon_inter_filter(*a, **dict(k,
+                                                             reference=True)),
+                    reps=3, warm=False)
+    (refs, slot0, mv0, coefs, log2m8, qp4, _, _, inter8, sched, bs_v, bs_h,
+     sao_params) = a[:13]
+    # operations, from this picture's data: the separable MC its motion
+    # needs and the rounding (3 a sample); per inter TU with a coded
+    # coefficient the inverse transform (2 stages of n multiply-adds,
+    # matrix form) and about 4 a sample (dequantise, add, clip); per intra
+    # CU the same with about 10 a sample for the prediction; deblocking
+    # and SAO as the K7 and K9 rows count them; bytes: the reference, the
+    # int16 levels and the planes written once each
+    npx = coefs[0].numel() * 1.5
+    ops = float((mc_ops(mv0, 8, True) + 2 * mc_ops(mv0, 4, False)).sum())
+    ops += 3 * npx
+    cf = [c.cpu() for c in coefs]
+    for pl, x, y, n in wf.inter_tu_list(log2m8.numpy(),
+                                        inter8.numpy().astype(bool)):
+        if bool(cf[pl][y:y + n, x:x + n].any()):
+            ops += n * n * (2 * n + 4)
+    recs = np.asarray(sched.recs)
+    sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
+    ops += float(np.sum(sizes ** 2 * (2 * sizes + 10)
+                        + 2 * (sizes / 2) ** 2 * (sizes + 10)))
+    if a[14]:                                  # deblock
+        seg = int((bs_v > 0).sum() + (bs_h > 0).sum())
+        seg16 = int((bs_v[:, ::4] == 2).sum() + (bs_h[::4, :] == 2).sum())
+        ops += 160.0 * seg + 40.0 * seg16
+    if sao_params is not None:
+        cs = a[22]
+        ops += 12.0 * int((sao_params[0] != 0).sum()) * cs * cs
+    bnd, by = bound_ms(refs[0][0].numel() * 1.5 + 2 * npx + npx, ops)
+    print(f"phase K18 inter recon (P picture {i} of the decode, {n_intra} "
+          f"intra CUs): planes equal, kernel {ms:.3f} ms (K14, ks_inter_recon,"
+          f" the seeded K11, K7 and K9), plain {plain:.3f} ms, bound "
+          f"{bnd:.4f} ms ({by})", flush=True)
+    return dict(name="inter_recon", route="cuda",
+                source="ks265codec_tpu_torch/csrc/inter_recon.cu",
+                replaces="ks265codec_tpu/ops/wavefront.py:549",
+                max_abs_err=max_abs_err(gk, gp), ms=ms, plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                counters=["inter_recon"])
+
+
+def decide_ops(stats, tier: int, prm) -> float:
+    """Float32 operations of the SAO decision (K16) that these statistics
+    need: per bin the start (two casts, the max, the division, rint and
+    the clamp: 8) and, where the bin has samples, about 6 for each of its
+    |start| candidates (three products, a subtraction, the fma, the
+    compare with the minimum); per EO class the sum of its four costs and
+    the class compare (5); from tier 3 per plane the 29 band windows of
+    three additions and a compare, and the window's lambda and compare
+    (2). EO classes 0/1 at tier 1 and all four above; luma below tier 3,
+    all three planes from it, Cr only in the mode and class Cb chose
+    (prm: the decision's (type, offs, bpos, eocl))."""
+    from ks265codec_tpu_torch.ops.saodecide import BOUNDS, CATS
+
+    def bins(cnt, err, lo, hi):
+        c, e = cnt.detach().cpu().float(), err.detach().cpu().float()
+        start = torch.round(e / c.clamp(min=1.0)).clamp(lo, hi)
+        return 8.0 + 6.0 * torch.where(c > 0, start.abs(), 0.0)
+
+    type_, eocl = prm[0].cpu().long(), prm[3].cpu().long()
+    total = 0.0
+    for c, (eo_cnt, eo_err, bo_cnt, bo_err) in enumerate(
+            stats[:3 if tier >= 3 else 1]):
+        eo = torch.stack([
+            sum(bins(eo_cnt[k, cat], eo_err[k, cat], *BOUNDS[j])
+                for j, cat in enumerate(CATS)) + 5.0
+            for k in range(2 if tier <= 1 else eo_cnt.shape[0])])
+        bo = (bins(bo_cnt, bo_err, -7.0, 7.0).sum(0) + 29 * 4 + 2
+              if tier >= 3 else torch.zeros(()))
+        if c == 2:
+            eo = torch.where(type_[1] == 2,
+                             eo.gather(0, eocl[1][None])[0], 0.0)
+            bo = torch.where(type_[1] == 1, bo, 0.0)
+        total += float(eo.sum() + bo.sum())
+    return total
 
 
 def main() -> int:
@@ -706,8 +887,9 @@ def main() -> int:
     # (frame 1 against the IDR of frame 0), on the inputs the encoder gives
     # them, recorded by wrapping the op functions during a 2-frame encode
     yuv = [YUVFrame(y, u, v, poc=i) for i, (y, u, v) in enumerate(frames)]
+    # BASELINE.json config 2, SAO from the preset (ultrafast: tier 1)
     icfg = dict(width=W, height=H, preset="ultrafast", latency="zerolatency",
-                rc=0, qp=30, intra_period=0, frame_rate=30, sao=0)
+                rc=0, qp=30, intra_period=0, frame_rate=30)
     calls = {}
     spied = [(tla, "frame_features_batch"), (me2, "me_fused"),
              (tid, "decide_tiers"), (tid, "snap_sads"),
@@ -753,7 +935,7 @@ def main() -> int:
             raise AssertionError(f"{path} never launched {missing}")
         return sum(counts[c] for c in names)
 
-    for key in ("decide", "intra_scan", "deblock"):
+    for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply"):
         rows[key]["required"] = rows[key]["counters"]
     encode(yuv)                                  # warm-up
     torch.cuda.synchronize()
@@ -837,16 +1019,25 @@ def main() -> int:
     print(f"phase SAO off: 4 frames ({len(a)} bytes) kernel stream == plain "
           "stream", flush=True)
 
-    # ---- phase 7: the low-delay P path (BASELINE.json config 2 with SAO
-    # off): 8 frames on the kernels == on the plain versions, then a timed
-    # 24-frame encode after a warm-up
-    def iencode(frames_in, reference=False):
-        enc = HevcEncoder(EncoderConfig(**icfg), reference=reference)
+    # ---- phase 7: the low-delay P path (BASELINE.json config 2, SAO tier
+    # 1): 8 frames on the kernels == on the plain versions, then a timed
+    # 24-frame encode after a warm-up; the SAO-off P path on 4 frames
+    def iencode(frames_in, reference=False, **over):
+        enc = HevcEncoder(EncoderConfig(**dict(icfg, **over)),
+                          reference=reference)
         efs = []
         for fr in frames_in:
             efs += enc.encode_frame(fr)
         efs += enc.flush()
         return efs
+
+    a = b"".join(e.data for e in iencode(yuv[:4], sao=0))
+    b = b"".join(e.data for e in iencode(yuv[:4], reference=True, sao=0))
+    if a != b:
+        raise AssertionError("SAO-off IPPP stream: kernels and plain "
+                             "versions differ")
+    print(f"phase inter SAO off: 4 frames ({len(a)} bytes) kernel stream == "
+          "plain stream", flush=True)
 
     ka = iencode(yuv[:8])
     kb = iencode(yuv[:8], reference=True)
@@ -866,14 +1057,13 @@ def main() -> int:
     torch.cuda.synchronize()
     isecs = time.perf_counter() - t0
     icounts = dict(_build.launches)
-    for key in ("decide", "intra_scan", "deblock", "lookahead",
-                "motion_search", "inter_decide", "inter_mc", "inter_code"):
-        launches = check_counts(rows[key]["required"], icounts,
-                                "low-delay P path")
+    for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
+                "lookahead", "motion_search", "inter_decide", "inter_mc",
+                "inter_code", "sao_decide"):
+        check_counts(rows[key]["required"], icounts, "low-delay P path")
         if key in INTER_ROWS:
             rows[key]["launches"] = sum(icounts.get(c, 0)
                                         for c in rows[key]["counters"])
-        del launches
     istream = b"".join(e.data for e in iefs)
     irec = sorted(iefs, key=lambda e: e.display_idx)
     imse = np.mean([np.mean((e.recon.y.astype(np.float64)
@@ -888,12 +1078,61 @@ def main() -> int:
         raise AssertionError("IPPP stream holds too few P pictures: "
                              + slice_types)
     print(f"phase inter path: {len(iefs)} frames {W}x{H} (ultrafast "
-          f"zerolatency QP 30 SAO off) in {isecs:.3f} s = {inter_fps:.3f} "
+          f"zerolatency QP 30 SAO tier 1) in {isecs:.3f} s = {inter_fps:.3f} "
           f"fps on {card}; stream {len(istream)} bytes md5 "
           f"{hashlib.md5(istream).hexdigest()}; luma PSNR {ipsnr:.3f} dB; "
           f"slice types {slice_types}; launches {icounts}", flush=True)
 
-    # ---- phase 8: the CLIs on the card
+    # ---- phase 8: the P decode, HevcDecoder on the card decodes the timed
+    # IPPP stream: a first decode records K18's inputs, then a timed decode
+    # with the launch counts reset just before
+    ienc_md5 = md5s(e.recon for e in irec)
+    k18_calls = []
+    k18_fn = wf.recon_inter_filter
+
+    def k18_spy(*a, **k):
+        k18_calls.append((a, k))
+        return k18_fn(*a, **k)
+
+    wf.recon_inter_filter = k18_spy
+    try:
+        HevcDecoder().decode_all(istream)
+    finally:
+        wf.recon_inter_filter = k18_fn
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    idec = HevcDecoder()
+    idecoded = idec.decode_all(istream)
+    torch.cuda.synchronize()
+    idsecs = time.perf_counter() - t0
+    idcounts = dict(_build.launches)
+    inter_decode_fps = len(idecoded) / idsecs
+    if idec.fast_pictures != INTER_FRAMES or len(idecoded) != INTER_FRAMES:
+        raise AssertionError(f"P decode: {idec.fast_pictures} of "
+                             f"{len(idecoded)} pictures took the fast path")
+    idec_md5 = md5s(idecoded)
+    if idec_md5 != ienc_md5:
+        bad = [i for i, (x, y) in enumerate(zip(idec_md5, ienc_md5))
+               if x != y]
+        raise AssertionError(f"P decode: frames {bad} differ from the "
+                             "encoder's reconstruction")
+    check_counts(["inter_mc", "inter_recon", "deblock_edges", "sao_apply"],
+                 idcounts, "P decode path")
+    ref4 = md5s(HevcDecoder(reference=True).decode_all(
+        b"".join(e.data for e in iefs[:4])))
+    if ref4 != idec_md5[:4]:
+        raise AssertionError("P decode: reference=True differs on the first "
+                             "4 pictures")
+    print(f"phase inter decode: {len(idecoded)} frames {W}x{H} in "
+          f"{idsecs:.3f} s = {inter_decode_fps:.3f} fps on {card}; all "
+          f"{idec.fast_pictures} through the fast path, md5 equal to the "
+          f"encoder's recon, first 4 equal with reference=True; launches "
+          f"{idcounts}", flush=True)
+    rows["inter_recon"] = k18_phase(k18_calls, card)
+    rows["inter_recon"]["launches"] = idcounts["inter_recon"]
+
+    # ---- phase 9: the CLIs on the card
     work = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
@@ -944,12 +1183,12 @@ def main() -> int:
         argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
                 "-frms", "4", "-b", str(work / "ippp.265"), "-preset",
                 "ultrafast", "-latency", "zerolatency", "-iper", "0",
-                "-sao", "0", "-qp", "30", "-rdoq", "0", "-fr", "30"]
+                "-qp", "30", "-rdoq", "0", "-fr", "30"]
         _build.reset_launches()
         with contextlib.redirect_stdout(io.StringIO()):
             rc = app_encoder.main(argv)
         for key in ("lookahead", "motion_search", "inter_decide",
-                    "inter_code"):
+                    "inter_code", "sao_decide"):
             check_counts(rows[key]["required"], _build.launches,
                          "app_encoder (IPPP)")
         ccfg = app_encoder.cfg_from_args(
@@ -963,15 +1202,27 @@ def main() -> int:
         if rc != 0 or (work / "ippp.265").read_bytes() != want:
             raise AssertionError("app_encoder -latency zerolatency -iper 0: "
                                  "bytes differ from HevcEncoder's")
+        want_md5 = [",".join(m) for m in md5s(e.recon for e in cefs)]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = app_decoder.main(["-b", str(work / "ippp.265"), "-md5", "1"])
+        check_counts(["inter_mc", "inter_recon", "deblock_edges",
+                      "sao_apply"], _build.launches, "app_decoder (IPPP)")
+        dec_lines = [ln.split()[3] for ln in out.getvalue().splitlines()
+                     if ln.startswith("POC ")]
+        if rc != 0 or dec_lines != want_md5:
+            raise AssertionError("app_decoder -md5 1 (IPPP): lines differ "
+                                 "from the encoder's md5s")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    print(f"phase CLI IPPP: app_encoder -latency zerolatency -iper 0 -sao 0 "
-          f"4 frames ({len(want)} bytes, slice types "
-          f"{''.join(e.slice_type for e in cefs)}) == HevcEncoder", flush=True)
+    print(f"phase CLI IPPP: app_encoder -latency zerolatency -iper 0 4 "
+          f"frames ({len(want)} bytes, slice types "
+          f"{''.join(e.slice_type for e in cefs)}) == HevcEncoder, "
+          "app_decoder -md5 1 == encoder md5s", flush=True)
 
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
-                "intra_recon") + INTER_ROWS:
+                "intra_recon") + INTER_ROWS + ("inter_recon",):
         r = rows[key]
         r.pop("counters")
         r.pop("required", None)
@@ -979,7 +1230,8 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": table, "main_path_fps": fps,
                       "decode_fps": decode_fps,
-                      "inter_path_fps": inter_fps}))
+                      "inter_path_fps": inter_fps,
+                      "inter_decode_fps": inter_decode_fps}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,9 +9,13 @@ fills the decision maps and dense level planes, then
   2. ops/deblock.py     deblocking with the parsed bS and QP maps (K7),
   3. ops/saoapply.py    SAO with the parsed per-CTB parameters (K9),
 on the decoder's device; the planes stay there until a consumer reads them.
-Pictures outside the fast path's coverage take the scalar walk and the
-host filters (decode/filters.py). P/B pictures are not ported yet: their
-fast path raises NotImplementedError.
+The P fast path (`_materialize_fast_inter`) reconstructs a parsed P
+picture the same way through K18 (decode/interfast.py,
+ops/wavefront.py::recon_inter_filter: K14 MC, the inter TUs' residual, K11
+over the intra CUs, K7, K9). Pictures outside the fast paths' coverage
+take the scalar walk and the host filters (decode/filters.py), except
+P pictures on the card, which raise NotImplementedError, as B slices and
+P slices with explicit weighted prediction do on every device.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from .. import resolve_device
 from ..bitstream.nal import (NalType, is_idr, is_irap, is_rasl, is_vcl,
                              parse_nals)
 from ..hevc.params import PPS, SPS, parse_pps, parse_sps, parse_vps
-from ..hevc.slicehdr import I_SLICE, SliceHeader, parse_slice_header
+from ..hevc.slicehdr import B_SLICE, I_SLICE, SliceHeader, \
+    parse_slice_header
 from ..utils.yuv import YUVFrame
 from .filters import deblock_frame, sao_frame
 from .slice_dec import FrameState, SliceDecoder
@@ -52,6 +57,25 @@ class _HostView:
     def __array__(self, dtype=None, copy=None):
         a = self.t.cpu().numpy()
         return a if dtype is None else a.astype(dtype)
+
+
+def _sao_arrays(fs, sps):
+    """The parsed per-CTB SAO parameters as (type, offs, bpos, eocl) int8
+    arrays (3, ncty, nctx[, 4])."""
+    ncty, nctx = sps.pic_height_in_ctbs, sps.pic_width_in_ctbs
+    type_ = np.zeros((3, ncty, nctx), np.int8)
+    offs_ = np.zeros((3, ncty, nctx, 4), np.int8)
+    bpos_ = np.zeros((3, ncty, nctx), np.int8)
+    eocl_ = np.zeros((3, ncty, nctx), np.int8)
+    for ry in range(ncty):
+        for rx in range(nctx):
+            p = fs.sao[ry][rx]
+            for c in range(3):
+                type_[c, ry, rx] = p.type_idx[c]
+                offs_[c, ry, rx] = p.offsets[c]
+                bpos_[c, ry, rx] = p.band_pos[c]
+                eocl_[c, ry, rx] = p.eo_class[c]
+    return type_, offs_, bpos_, eocl_
 
 
 class DecodeError(Exception):
@@ -458,22 +482,45 @@ class HevcDecoder:
         the standard 64/8 CTB geometry, no PCM/scaling/TS/bypass/CIP.
         Syntax outside coverage aborts per-CU and falls back. Without the
         native host library the coder raises RuntimeError, as the
-        encoder's does: the fast path is the device path."""
+        encoder's does: the fast path is the device path. A P slice
+        outside the P fast path's coverage raises NotImplementedError on
+        any device but the CPU, whose decoder takes the scalar walk."""
         if getattr(self, "_wf_coder", None) is None:
             from ..ops.wavefront import WavefrontIntraCoder
             self._wf_coder = WavefrontIntraCoder()
-        if hdr.slice_type != I_SLICE:
-            raise NotImplementedError("inter decode (slice 3)")
-        return (sps.max_transform_hierarchy_depth_intra == 0
-                and sps.log2_ctb == 6 and sps.log2_min_cb == 3
-                and sps.log2_max_tb == 5
-                and sps.bit_depth_luma == 8
-                and not sps.pcm_enabled
-                and not sps.scaling_list_enabled
-                and not pps.transform_skip_enabled
-                and not pps.transquant_bypass_enabled
-                and not pps.constrained_intra_pred
-                and not pps.scaling_list_data_present)
+        if hdr.slice_type == B_SLICE:
+            raise NotImplementedError("B slices in the decoder (slice 6)")
+        ok = (sps.max_transform_hierarchy_depth_intra == 0
+              and sps.log2_ctb == 6 and sps.log2_min_cb == 3
+              and sps.log2_max_tb == 5
+              and sps.bit_depth_luma == 8
+              and not sps.pcm_enabled
+              and not sps.scaling_list_enabled
+              and not pps.transform_skip_enabled
+              and not pps.transquant_bypass_enabled
+              and not pps.constrained_intra_pred
+              and not pps.scaling_list_data_present)
+        if hdr.slice_type == I_SLICE:
+            return ok
+        from .interfast import _wp_tables
+        _wp_tables(hdr)
+        # P coverage (the reference's gates): single-tile pictures; the
+        # chroma residual reads one QP per 4x4 chroma tile, so
+        # quantization groups must be >= 16 luma samples. PU/TU shapes
+        # outside the fast path abort per slice during the parse.
+        gaps = [name for bad, name in (
+            (pps.tiles_enabled, "tiles in P pictures"),
+            (pps.cu_qp_delta_enabled
+             and sps.log2_ctb - pps.diff_cu_qp_delta_depth < 4,
+             "quantization groups < 16 in P pictures"),
+            (not ok, "P pictures outside the fast path's geometry (TU = "
+             "CU, 64x64 CTBs, 8x8 CUs, 8 bits, no PCM, scaling lists, "
+             "transform skip, bypass or constrained intra)")) if bad]
+        if gaps and self.device.type != "cpu":
+            raise NotImplementedError(
+                "; ".join(gaps) + " on the card (slice 7); "
+                "HevcDecoder(device='cpu') decodes them with the scalar walk")
+        return not gaps
 
     def _materialize_fast(self, sps=None, pps=None,
                           final: bool = False) -> None:
@@ -487,6 +534,9 @@ class HevcDecoder:
         self._fast_pending = None
         fs = self.cur
         sps, pps, hdr, ref_lists = pend
+        if hdr.slice_type != I_SLICE:
+            self._materialize_fast_inter(fs, sps, pps, hdr, ref_lists, final)
+            return
         from ..ops.wavefront import recon_intra_frames
         from ..utils.trace import stage
         dev = self.device
@@ -550,22 +600,8 @@ class HevcDecoder:
                     sps.width, sps.height, reference=self.reference)
         if hdr.sao_luma or hdr.sao_chroma:
             from ..ops.saoapply import sao_apply_frames
-            ncty = sps.pic_height_in_ctbs
-            nctx = sps.pic_width_in_ctbs
-            type_ = np.zeros((1, 3, ncty, nctx), np.int8)
-            offs_ = np.zeros((1, 3, ncty, nctx, 4), np.int8)
-            bpos_ = np.zeros((1, 3, ncty, nctx), np.int8)
-            eocl_ = np.zeros((1, 3, ncty, nctx), np.int8)
-            for ry in range(ncty):
-                for rx in range(nctx):
-                    p = fs.sao[ry][rx]
-                    for c in range(3):
-                        type_[0, c, ry, rx] = p.type_idx[c]
-                        offs_[0, c, ry, rx] = p.offsets[c]
-                        bpos_[0, c, ry, rx] = p.band_pos[c]
-                        eocl_[0, c, ry, rx] = p.eo_class[c]
-            prm = [torch.from_numpy(a).to(dev)
-                   for a in (type_, offs_, bpos_, eocl_)]
+            prm = [torch.from_numpy(a[None]).to(dev)
+                   for a in _sao_arrays(fs, sps)]
             # luma always, as the reference's fast path does (a slice with
             # sao_luma off parses type 0 for luma)
             with stage("dec.sao"):
@@ -577,6 +613,39 @@ class HevcDecoder:
         self.fast_pictures += 1
         if self.threads == 1:
             fs.ensure_planes()     # ST strategy: no pipeline overlap
+
+    def _materialize_fast_inter(self, fs, sps, pps, hdr, ref_lists,
+                                final: bool) -> None:
+        """P twin of _materialize_fast: K18 on the decoder's device. With
+        the whole picture fast-parsed (final) the filters run there too
+        and the planes stay on the device; a partial picture (another
+        slice joins) reconstructs without in-loop filters and lands in the
+        host planes for the scalar continuation."""
+        from .interfast import recon_inter_picture
+        deblock_ok = final and bool(
+            hdr.loop_filter_across_slices
+            if hasattr(hdr, "loop_filter_across_slices") else True)
+        if deblock_ok:
+            sao_params = (_sao_arrays(fs, sps)
+                          if hdr.sao_luma or hdr.sao_chroma else None)
+            planes = recon_inter_picture(self._wf_coder, fs, sps, pps, hdr,
+                                         ref_lists, sao_params, self.device,
+                                         self.reference)
+            fs.attach_device_planes([_HostView(p) for p in planes])
+            fs._fast_filtered = True
+            self.fast_pictures += 1
+            if self.threads == 1:
+                fs.ensure_planes()     # ST strategy: no pipeline overlap
+            return
+        import copy
+        hdr_nf = copy.copy(hdr)
+        hdr_nf.sao_luma = 0
+        hdr_nf.sao_chroma = 0
+        hdr_nf.deblocking_filter_disabled = 1
+        planes = recon_inter_picture(self._wf_coder, fs, sps, pps, hdr_nf,
+                                     ref_lists, None, self.device,
+                                     self.reference)
+        fs.y[:], fs.cb[:], fs.cr[:] = (p.cpu().numpy() for p in planes)
 
     def _finish_current_picture(self) -> None:
         if self.cur is None:

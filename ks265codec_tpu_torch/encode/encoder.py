@@ -6,7 +6,7 @@ contract and the same `EncodedFrame` as ks265codec_tpu/encode/encoder.py,
 for the configurations the port covers (`unsupported` lists the rest):
 fixed QP, the fast presets' tools, and either all-intra
 (`intra_period=1`, SAO at any tier) or low-delay P (`bframes == 0`, one
-reference, SAO off).
+reference, SAO at any tier).
 
 Low-delay P follows the reference's `_drain` IDR and low-delay branches
 and the P branch of `_encode_picture`: every frame is pushed to the
@@ -15,7 +15,10 @@ an IDR goes through the all-intra kernels below as a one-frame batch and
 its device reconstruction enters the device DPB directly; each P picture
 takes the previous picture as its one reference and the +3/+2/+3/+1 QP
 cascade, and is coded by the inter engine (encode/inter_engine.py: K5,
-K13, K15, K17 with K14 and the seeded K6 scan, K7).
+K13, K15, K17 with K14 and the seeded K6 scan, K7, and with SAO on the
+device K8 -> K16 -> K9, whose parameters the slice writes; the host
+float64 decision of encode/sao.py is not run for P pictures, as the
+reference does not run it there).
 
 All-intra follows the reference's batched all-intra path (`_drain`'s
 all-intra branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the
@@ -92,7 +95,6 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
         (inter and cfg.bframes != 0, "B pictures (bframes > 0)"),
         (inter and cfg.refs > 1, "multiple reference pictures (refs > 1)"),
         (inter and bool(cfg.weightp), "weighted prediction (weightp)"),
-        (inter and cfg.sao > 0, "SAO in P pictures (K16)"),
         (inter and tile_dims(cfg) != (1, 1), "tiles with inter coding"),
         (inter and cfg.partitions != 0, "inter partitions"),
         (inter and cfg.inter_tu_depth != 0, "the inter TU split"),
@@ -402,6 +404,9 @@ class HevcEncoder:
         hdr.deblocking_filter_disabled = pps.deblocking_filter_disabled
         hdr.beta_offset_div2 = pps.beta_offset_div2
         hdr.tc_offset_div2 = pps.tc_offset_div2
+        if sps.sao_enabled:
+            hdr.sao_luma = 1
+            hdr.sao_chroma = 1
         by_poc = {rp.poc: rp for rp in self.dpb}
         # trim RPS entries to pictures actually in the DPB
         pairs = [(d, u) for d, u in zip(plan.ref_deltas, plan.ref_used)
@@ -439,7 +444,12 @@ class HevcEncoder:
         enc.sao_tier = max(int(cfg.sao), 1)
         enc.compute()
         recon_dev = enc.device_post["recon_dev"]
-        rbsp = self._slice_rbsp(fs, enc.syn, hdr, None)
+        # SAO was decided and applied on the device inside the coding
+        # pass; its parameters come back for the slice's sao() syntax
+        sao_arrays = enc.device_post["sao_arrays"]
+        sao_params = (None if sao_arrays is None
+                      else params_from_arrays(fs, *sao_arrays))
+        rbsp = self._slice_rbsp(fs, enc.syn, hdr, sao_params)
         data = b""
         if cfg.pic_timing_sei:
             from ..hevc.sei import pic_timing_payload, write_sei_rbsp

@@ -7,8 +7,8 @@ the device calls (`_device_inputs`, `engine_pre_analysis`,
 the port's ops (K5, K13, K15, K17 and the seeded K6 scan) on the
 encoder's device and return typed tensors; the host logic is the
 reference's. The engine reads no environment variable: it takes its own
-default of two decision iterations. B pictures, weighted prediction, SAO
-and cu_qp_delta inside the engine are not ported and raise.
+default of two decision iterations. B pictures, weighted prediction and
+cu_qp_delta inside the engine are not ported and raise.
 
 Pipeline per frame (the reference's per-CTU P/B hot loop
 CCtuEnc::processOneCtu, SURVEY.md 3.2, restructured TPU-first):
@@ -18,7 +18,8 @@ CCtuEnc::processOneCtu, SURVEY.md 3.2, restructured TPU-first):
      intra by rough-RD (real transform+quant); 64-tier zero-residual probe
   4. host map assembly (vectorized): CU pyramid, final motion, TU packs
   5. ONE device coding dispatch: MC + residual chain + zero-forcing +
-     seeded intra wavefront + BS build + deblock + SAO stats
+     seeded intra wavefront + BS build + deblock + SAO (stats, decision,
+     apply)
   6. vectorized syntax mapping on the FINAL field: true merge lists /
      AMVP (merge_vec) -> merge_idx or mvd syntax, skip conversion.
 The reference's per-CU host walk is not ported, so there is no fallback:
@@ -198,9 +199,8 @@ def run_engine(enc) -> None:
     fs, sps, pps, hdr = enc.fs, enc.sps, enc.pps, enc.hdr
     if hdr.weights is not None:
         raise NotImplementedError("weighted prediction is not ported")
-    if sps.sao_enabled or pps.cu_qp_delta_enabled:
-        raise NotImplementedError("SAO and cu_qp_delta in P pictures are "
-                                  "not ported")
+    if pps.cu_qp_delta_enabled:
+        raise NotImplementedError("cu_qp_delta in P pictures is not ported")
     cfg_w, cfg_h = sps.width, sps.height
     ph, pw = fs.ph, fs.pw
     h8, w8 = ph >> 3, pw >> 3
@@ -755,8 +755,9 @@ def up8_generic(a, n, h8, w8):
 # ==================================================== coding dispatch
 
 def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
-    """The picture's coding pass (K17): returns the deblocked device
-    planes and the (y, cb, cr) levels on the host."""
+    """The picture's coding pass (K17): returns the deblocked (and, with
+    SAO, filtered) device planes, the (y, cb, cr) levels on the host and
+    the SAO parameters on the host (or None)."""
     from ..ops.intercode import code_inter_frame
 
     fs, sps, pps, hdr = enc.fs, enc.sps, enc.pps, enc.hdr
@@ -830,17 +831,21 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
     qp4 = np.repeat(np.repeat(qp_map8, 2, 0), 2, 1).astype(np.uint8)
     from ..utils.trace import stage
     with stage("inter.code_dispatch"):
-        rec_dev, coef_dev = code_inter_frame(
+        rec_dev, coef_dev, sao_dev = code_inter_frame(
             jsrc, jr, T(slot0.astype(np.int32)), T(mv0.astype(np.int32)),
             tu_packs, T(cu_lam), intra_sched, bs_in, T(qp4), n_cu, h8, w8,
             cfg_w, cfg_h, hdr.beta_offset_div2, hdr.tc_offset_div2,
             pps.cb_qp_offset + hdr.cb_qp_offset,
             pps.cr_qp_offset + hdr.cr_qp_offset,
             not pps.deblocking_filter_disabled,
-            bool(sps.strong_intra_smoothing), reference=enc.reference)
+            bool(sps.strong_intra_smoothing), reference=enc.reference,
+            sao=((enc.sao_tier, int(hdr.slice_qp), sps.ctb_size)
+                 if sps.sao_enabled else None))
     with stage("inter.code_fetch"):
         coeffs = tuple(c.cpu().numpy() for c in coef_dev)
-    return rec_dev, coeffs, None
+        sao_arrays = (None if sao_dev is None
+                      else tuple(a.cpu().numpy() for a in sao_dev))
+    return rec_dev, coeffs, sao_arrays
 
 
 def _intra_segs(enc, maps):
@@ -848,7 +853,8 @@ def _intra_segs(enc, maps):
     availability of each from the full schedule, its level from the
     intra-only dependencies, its chroma QPs from the PPS and slice
     offsets."""
-    from ..ops.wavefront import WavefrontIntraCoder, pack_records
+    from ..ops.wavefront import WavefrontIntraCoder, intra_subset, \
+        pack_records
 
     sps, fs = enc.sps, enc.fs
     h8, w8 = fs.ph >> 3, fs.pw >> 3
@@ -861,37 +867,8 @@ def _intra_segs(enc, maps):
         enc._wf_coder = coder
     sched = coder.build_schedule(maps.log2m, sps.width, sps.height,
                                  sps.log2_ctb, sps.log2_min_cb)
-    ox, oy, osz, olv, oal, oac, oat = sched
-    sel = intra_mask[oy >> 3, ox >> 3]
-    ox, oy, osz = ox[sel], oy[sel], osz[sel]
-    oal, oac, oat = oal[sel], oac[sel], oat[sel]
-    # levels: longest path over intra-only dependencies, walked in z order
-    zv = _zvals(fs.ph >> 2, fs.pw >> 2, sps.log2_ctb)
-    order = np.argsort(zv[oy >> 2, ox >> 2], kind="stable")
-    lvl8 = np.full((h8, w8), -1, np.int32)
-    zv8 = zv[::2, ::2]
-    olv = np.zeros(len(ox), np.int32)
-    for k in order:
-        r, c = int(oy[k]) >> 3, int(ox[k]) >> 3
-        n8 = int(osz[k]) >> 3
-        m8 = 2 * n8
-        lv = 0
-        z0 = zv8[r, c]
-        if c > 0:
-            col = lvl8[r:min(r + m8, h8), c - 1]
-            zc = zv8[r:min(r + m8, h8), c - 1]
-            good = col[(col >= 0) & (zc < z0)]
-            if len(good):
-                lv = max(lv, int(good.max()) + 1)
-        if r > 0:
-            c1 = max(c - 1, 0)
-            row = lvl8[r - 1, c1:min(c + m8, w8)]
-            zr = zv8[r - 1, c1:min(c + m8, w8)]
-            good = row[(row >= 0) & (zr < z0)]
-            if len(good):
-                lv = max(lv, int(good.max()) + 1)
-        olv[k] = lv
-        lvl8[r:r + n8, c:c + n8] = lv
+    sub = intra_subset(sched, intra_mask,
+                       _zvals(fs.ph >> 2, fs.pw >> 2, sps.log2_ctb))
     # modes for intra cells
     modes8 = np.full((h8, w8), 1, np.int32)
     cmodes8 = np.full((h8, w8), 1, np.int32)
@@ -903,7 +880,7 @@ def _intra_segs(enc, maps):
     cmodes8[:ch8, :cw8] = np.where(sz16, cm16, enc.cmode8)[:ch8, :cw8]
     qp_map8 = enc._qp_tabs[0]
     packed = pack_records(
-        [((ox, oy, osz, olv, oal, oac, oat), modes8, cmodes8, qp_map8)],
+        [(sub, modes8, cmodes8, qp_map8)],
         enc.pps.cb_qp_offset + enc.hdr.cb_qp_offset,
         enc.pps.cr_qp_offset + enc.hdr.cr_qp_offset)
     return packed, intra_mask

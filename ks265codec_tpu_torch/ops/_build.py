@@ -54,6 +54,8 @@ _SIGNATURES = {
     "ks_inter_gate": [_P] * 4 + [_I] * 2 + [_P],
     "ks_inter_finish": [_P] * 18 + [_I] * 6 + [_P],
     "ks_inter_bs": [_P] * 9 + [_I] * 3 + [_P],
+    "ks_sao_decide": [_P] * 16 + [_I] * 2 + [_F] * 3 + [_P],
+    "ks_inter_recon": [_P] * 11 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
 """Inter coding of one P picture (K17, with K14 inside): MC, the residual
 of every transform unit by TU class, the CU zero-forcing gate, the final
 levels and reconstruction, the seeded intra scan of the picture's intra
-CUs, the boundary strengths and the deblocking filter.
+CUs, the boundary strengths, the deblocking filter and, when the
+sequence has it, SAO (K8 statistics -> K16 decision -> K9).
 
 Counterpart of ks265codec_tpu/ops/intercode.py::_inter_code_core (with
 `_code_tu_class`, the chroma branch, and `code_inter_frame_jit`) for
-uni-prediction, SAO off, no sign hiding and no cu_qp_delta (the
+uni-prediction, no sign hiding and no cu_qp_delta (the
 effective-QP chain `_effective_qp4` is then the identity). The
 coefficient planes come back dense; the reference's sparse packing is a
 transfer workaround and is not ported.
@@ -25,7 +26,8 @@ dequantise, inverse transform, the three sums in one thread), one gate
 launch (one thread per CU), one launch per TU class for the final levels
 and reconstruction; then the intra scan's level launches (csrc/
 intra_scan.cu), one launch for the boundary strengths and the two
-deblocking launches (csrc/deblock.cu).
+deblocking launches (csrc/deblock.cu); with SAO, the K8, K16 and K9
+launches (csrc/sao_stats.cu, sao_decide.cu, sao_apply.cu).
 """
 
 from __future__ import annotations
@@ -37,7 +39,10 @@ from ..interop import device_log_table, device_tables
 from . import _build
 from .decide import _block_sum, _tree, fma32
 from .deblock import deblock_frames
-from .mc import mc_planes_plain
+from .mc import mc_planes
+from .saoapply import sao_apply_frames
+from .saodecide import sao_decide
+from .saostats import sao_stats_frames
 from .transforms import dequant_itx, forward_transform, quantize
 from .wavefront import LevelSchedule, code_intra_frames_into
 
@@ -189,8 +194,7 @@ def code_inter_frame_plain(src, refs, slot0, mv0, tu_packs, cu_lam,
     plane set a (y, cb, cr) tuple; rec is pre-deblocking."""
     dev = src[0].device
     si = [p.to(torch.int32) for p in src]
-    pred = mc_planes_plain(*refs, slot0, mv0, torch.full_like(slot0, -1),
-                           torch.zeros_like(mv0), False, h8, w8, pic_w, pic_h)
+    pred = mc_planes(refs, slot0, mv0, h8, w8, pic_w, pic_h, reference=True)
     pi = [p.to(torch.int32) for p in pred]
     acc, results = cu_sums(si, pi, tu_packs, n_cu)
     d_skip, d_coded, bits = acc
@@ -229,31 +233,6 @@ def _i32(a, dev):
     return a.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def mc_planes_cuda(refs, slot0, mv0, h8: int, w8: int, pic_w: int,
-                   pic_h: int):
-    """K14 on the card: the uni-predicted planes of the (h8, w8) cell grid
-    from per-cell motion (`mc_planes_plain` without list 1), one
-    launch of `ks_inter_mc`."""
-    for t in refs:
-        if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError("reference stacks must be contiguous uint8 "
-                             "CUDA tensors")
-    dev = refs[0].device
-    R, H, W = refs[0].shape
-    if (H, W) != (8 * h8, 8 * w8):
-        raise ValueError("the cell grid must cover the planes")
-    slot0, mv0 = _i32(slot0, dev), _i32(mv0, dev)
-    pred = [torch.empty(r.shape[1:], dtype=torch.uint8, device=dev)
-            for r in refs]
-    P = _build.ptr
-    _build.check(_build.kernels().ks_inter_mc(
-        P(refs[0]), P(refs[1]), P(refs[2]), P(slot0), P(mv0), P(pred[0]),
-        P(pred[1]), P(pred[2]), h8, w8, H, W, pic_w, pic_h,
-        _build.stream(dev)), "ks_inter_mc")
-    _build.count("inter_mc")
-    return pred
-
-
 def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
                           intra_sched, n_cu: int, h8: int, w8: int,
                           pic_w: int, pic_h: int, strong: bool):
@@ -267,7 +246,7 @@ def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
     P = _build.ptr
     tab = device_tables(dev)
     R, H, W = refs[0].shape
-    pred = mc_planes_cuda(refs, slot0, mv0, h8, w8, pic_w, pic_h)
+    pred = mc_planes(refs, slot0, mv0, h8, w8, pic_w, pic_h)
     ctab = torch.as_tensor(cu_table(tu_packs, n_cu), device=dev)
     cls = []
     sums = torch.zeros((len(CLASS_ORDER), 3, max(
@@ -338,21 +317,43 @@ def bs_maps_cuda(cbf4, e2_v, e2_h, etb_v, etb_h, emv_v, emv_h,
 
 # ------------------------------------------------------------- entry point
 
+def sao_picture(rec, src, tier: int, qp: int, pic_w: int, pic_h: int,
+                cs: int, reference: bool = False):
+    """SAO of one deblocked picture as the reference's inter coding pass
+    runs it: K8 statistics against the sources (EO classes 0/1 at tier 1,
+    all four above; band offset and chroma from tier 3), the K16 decision
+    and K9 (luma always, chroma from tier 3). rec/src (y, cb, cr) uint8
+    planes. Returns the filtered planes and the (type, offs, bpos, eocl)
+    int8 parameters."""
+    ncl, bo = (2 if tier <= 1 else 4), tier >= 3
+    stats = []
+    for r, s, sh in list(zip(rec, src, (0, 1, 1)))[:3 if bo else 1]:
+        st = sao_stats_frames(r[None], s[None], pic_w >> sh, pic_h >> sh,
+                              cs >> sh, ncl, bo, reference=reference)
+        stats.append(tuple(a[0] if a is not None else None for a in st))
+    prm = sao_decide(stats, qp, tier, reference=reference)
+    out = sao_apply_frames(*(r[None] for r in rec), *(p[None] for p in prm),
+                           True, bo, pic_w, pic_h, cs, reference=reference)
+    return tuple(o[0] for o in out), prm
+
+
 def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
                      intra_sched: LevelSchedule | None, bs_in, qp4,
                      n_cu: int, h8: int, w8: int, pic_w: int, pic_h: int,
                      boff: int, toff: int, cbo: int, cro: int,
                      deblock: bool, strong: bool, reference: bool = False,
-                     want_pred: bool = False):
+                     want_pred: bool = False, sao=None):
     """Code one P picture. src (y, cb, cr) uint8 planes, refs (R, ...)
     uint8 stacks; slot0 (h8*w8,), mv0 (h8*w8, 2) per-cell motion (slot
     -1 never reaches here: intra cells carry slot 0); tu_packs:
     {(is_luma, n): (xs, ys, qp, cu_id, valid[, plane])}; cu_lam
     (n_cu + 1,) float32; intra_sched: the intra CUs' schedule or None;
-    bs_in: (e2_v, e2_h, etb_v, etb_h, emv_v, emv_h) per 4x4; qp4 per 4x4.
-    Returns ((y, cb, cr) deblocked uint8 planes, (y, cb, cr) int16
-    levels[, (y, cb, cr) MC prediction]). CUDA planes launch the kernels;
-    CPU planes, or reference=True, run the plain version."""
+    bs_in: (e2_v, e2_h, etb_v, etb_h, emv_v, emv_h) per 4x4; qp4 per 4x4;
+    sao: None, or (tier, slice_qp, ctb_size) to run `sao_picture`.
+    Returns ((y, cb, cr) deblocked (and SAO-filtered) uint8 planes,
+    (y, cb, cr) int16 levels, the SAO parameters or None[, (y, cb, cr) MC
+    prediction]). CUDA planes launch the kernels; CPU planes, or
+    reference=True, run the plain version."""
     dev = src[0].device
     plain = dev.type != "cuda" or reference
     fn = code_inter_frame_plain if plain else code_inter_frame_cuda
@@ -374,6 +375,11 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
                          qp4.to(device=dev, dtype=torch.uint8)[None], boff,
                          toff, cbo, cro, pic_w, pic_h, reference=reference)
     planes = tuple(o[0] for o in out)
+    prm = None
+    if sao is not None:
+        tier, qp, cs = sao
+        planes, prm = sao_picture(planes, src, tier, qp, pic_w, pic_h, cs,
+                                  reference=reference)
     if want_pred:
-        return planes, tuple(coef), tuple(pred)
-    return planes, tuple(coef)
+        return planes, tuple(coef), prm, tuple(pred)
+    return planes, tuple(coef), prm

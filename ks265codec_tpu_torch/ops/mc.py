@@ -15,7 +15,9 @@ port computes them in int32 and does not carry the TPU's phase-expanded
 matrices or 8-bit limb splits. Explicit weighted prediction is not ported.
 
 CUDA: the same arithmetic as `__device__` functions in csrc/mc.cuh, inlined
-in K15 (csrc/inter_decide.cu) and K17 (csrc/inter_code.cu).
+in K13 (csrc/me.cu) and K15 (csrc/inter_decide.cu); the whole-picture
+uni-prediction `mc_planes` launches `ks_inter_mc` (csrc/inter_code.cu, one
+thread block per 8x8 cell) for K17's coding pass and K18's decode.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from ..hevc.tables import CHROMA_FILTER, LUMA_FILTER
+from . import _build
 
 _LUMA = np.asarray(LUMA_FILTER, np.int32)
 _CHROMA = np.asarray(CHROMA_FILTER, np.int32)
@@ -121,3 +124,43 @@ def mc_planes_plain(refs_y, refs_cb, refs_cr, slot0, mv0, slot1, mv1,
         outs.append(untile(blk.to(torch.uint8), stack.shape[1] // t,
                            stack.shape[2] // t))
     return tuple(outs)
+
+
+def mc_planes_cuda(refs, slot0, mv0, h8: int, w8: int, pic_w: int,
+                   pic_h: int):
+    """K14 on the card: the uni-predicted planes of the (h8, w8) cell grid
+    from per-cell motion (`mc_planes_plain` without list 1), one launch of
+    `ks_inter_mc`."""
+    for t in refs:
+        if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("reference stacks must be contiguous uint8 "
+                             "CUDA tensors")
+    dev = refs[0].device
+    R, H, W = refs[0].shape
+    if (H, W) != (8 * h8, 8 * w8):
+        raise ValueError("the cell grid must cover the planes")
+    slot0 = slot0.to(device=dev, dtype=torch.int32).contiguous()
+    mv0 = mv0.to(device=dev, dtype=torch.int32).contiguous()
+    pred = tuple(torch.empty(r.shape[1:], dtype=torch.uint8, device=dev)
+                 for r in refs)
+    P = _build.ptr
+    _build.check(_build.kernels().ks_inter_mc(
+        P(refs[0]), P(refs[1]), P(refs[2]), P(slot0), P(mv0), P(pred[0]),
+        P(pred[1]), P(pred[2]), h8, w8, H, W, pic_w, pic_h,
+        _build.stream(dev)), "ks_inter_mc")
+    _build.count("inter_mc")
+    return pred
+
+
+def mc_planes(refs, slot0, mv0, h8: int, w8: int, pic_w: int, pic_h: int,
+              reference: bool = False):
+    """Uni-predicted (y, cb, cr) uint8 planes of the cell grid from
+    per-cell motion: refs (R, H, W) uint8 stacks, slot0 (h8*w8,) (>= 0),
+    mv0 (h8*w8, 2). CUDA stacks launch the kernel; CPU stacks, or
+    reference=True, run `mc_planes_plain`."""
+    if refs[0].device.type != "cuda" or reference:
+        slot0, mv0 = slot0.to(refs[0].device), mv0.to(refs[0].device)
+        return mc_planes_plain(*refs, slot0, mv0, torch.full_like(slot0, -1),
+                               torch.zeros_like(mv0), False, h8, w8, pic_w,
+                               pic_h)
+    return mc_planes_cuda(refs, slot0, mv0, h8, w8, pic_w, pic_h)

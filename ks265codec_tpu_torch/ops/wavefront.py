@@ -1,7 +1,9 @@
 """Intra coding scan (K6): predict -> forward DCT -> quant -> dequant ->
 inverse DCT -> reconstruction for every CU of a batch of intra frames, one
-dependency level at a time; and its decoder twin (K11): predict ->
-dequant -> inverse DCT -> reconstruction from parsed levels.
+dependency level at a time; its decoder twin (K11): predict -> dequant ->
+inverse DCT -> reconstruction from parsed levels; and the P-picture
+decode (K18, `recon_inter_filter`), which runs K11 over a picture's intra
+CUs after its inter CUs are reconstructed.
 
 Counterparts of ks265codec_tpu/ops/wavefront.py::_code_intra_frame_core
 (`_process_class`, `_refs_from_borders`, `_update_bottom/_update_right`),
@@ -22,7 +24,9 @@ guarantees the neighbours are final.
 CUDA: csrc/intra_scan.cu, one launch per level (`ks_intra_level` codes,
 `ks_intra_recon_level` reconstructs), one thread block per scheduled CU
 (luma 8/16/32 plus its two chroma blocks), frame on blockIdx.y. The plain
-versions run the same arithmetic level by level.
+versions run the same arithmetic level by level. K18's residual is
+csrc/inter_recon.cu (one thread block per inter TU); see
+`recon_inter_filter`.
 """
 
 from __future__ import annotations
@@ -158,6 +162,48 @@ def pack_records(per_frame, qp_cb_off: int, qp_cr_off: int) -> LevelSchedule:
         recs[bases[lv] + f * kmax[lv] + slot] = rec
     levels = [(int(bases[i]), int(kmax[i])) for i in range(n_levels)]
     return LevelSchedule(recs, levels, F)
+
+
+def intra_subset(sched, intra8: np.ndarray, zv: np.ndarray):
+    """The CUs of a full schedule (`build_schedule`'s tuple) that lie on
+    intra cells of an inter picture, each with a level of its own: one
+    above the latest intra CU among its left and upper neighbours that
+    precede it in z order, walked in z order (the intra CUs of a P
+    picture read their inter neighbours' reconstruction, which exists
+    before the scan starts). intra8 (h8, w8) bool; zv the z-scan order of
+    each 4x4 (encode/merge_vec.zscan_vals). Returns the subset in
+    `build_schedule`'s layout."""
+    h8, w8 = intra8.shape
+    ox, oy, osz, olv, oal, oac, oat = sched
+    sel = intra8[oy >> 3, ox >> 3]
+    ox, oy, osz = ox[sel], oy[sel], osz[sel]
+    oal, oac, oat = oal[sel], oac[sel], oat[sel]
+    order = np.argsort(zv[oy >> 2, ox >> 2], kind="stable")
+    lvl8 = np.full((h8, w8), -1, np.int32)
+    zv8 = zv[::2, ::2]
+    olv = np.zeros(len(ox), np.int32)
+    for k in order:
+        r, c = int(oy[k]) >> 3, int(ox[k]) >> 3
+        n8 = int(osz[k]) >> 3
+        m8 = 2 * n8
+        lv = 0
+        z0 = zv8[r, c]
+        if c > 0:
+            col = lvl8[r:min(r + m8, h8), c - 1]
+            zc = zv8[r:min(r + m8, h8), c - 1]
+            good = col[(col >= 0) & (zc < z0)]
+            if len(good):
+                lv = max(lv, int(good.max()) + 1)
+        if r > 0:
+            c1 = max(c - 1, 0)
+            row = lvl8[r - 1, c1:min(c + m8, w8)]
+            zr = zv8[r - 1, c1:min(c + m8, w8)]
+            good = row[(row >= 0) & (zr < z0)]
+            if len(good):
+                lv = max(lv, int(good.max()) + 1)
+        olv[k] = lv
+        lvl8[r:r + n8, c:c + n8] = lv
+    return ox, oy, osz, olv, oal, oac, oat
 
 
 # ------------------------------------------------------- plain PyTorch path
@@ -337,18 +383,32 @@ def code_intra_frames_into_cuda(srcs, recs, levs, sched: LevelSchedule,
 def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
                             strong: bool, tables: torch.Tensor):
     """K11 on the card: one launch of `ks_intra_recon_level` per level."""
-    for t in (lev_y, lev_cb, lev_cr):
+    recs = [torch.zeros(p.shape, dtype=torch.uint8, device=p.device)
+            for p in (lev_y, lev_cb, lev_cr)]
+    recon_intra_frames_into_cuda((lev_y, lev_cb, lev_cr), recs, sched,
+                                 strong, tables)
+    return tuple(recs)
+
+
+def recon_intra_frames_into_cuda(levs, recs, sched: LevelSchedule,
+                                 strong: bool, tables: torch.Tensor) -> None:
+    """`recon_intra_frames_into` on the card: one launch of
+    `ks_intra_recon_level` per level, in place."""
+    for t in levs:
         if t.dtype != torch.int16 or not t.is_cuda:
             raise ValueError("levels must be int16 CUDA tensors")
-    F, H, W = lev_y.shape
-    if lev_cb.shape != (F, H // 2, W // 2) or lev_cr.shape != lev_cb.shape:
+    for t in recs:
+        if t.dtype != torch.uint8 or not t.is_contiguous() or not t.is_cuda:
+            raise ValueError("planes must be contiguous uint8 CUDA tensors")
+    F, H, W = levs[0].shape
+    if levs[1].shape != (F, H // 2, W // 2) or levs[2].shape != levs[1].shape:
         raise ValueError("chroma planes must be (F, H/2, W/2)")
-    levs = [t.contiguous() for t in (lev_y, lev_cb, lev_cr)]
+    if any(r.shape != lv.shape for r, lv in zip(recs, levs)):
+        raise ValueError("reconstruction planes must match the levels")
+    levs = [t.contiguous() for t in levs]
     lib = _build.kernels()
-    recs = [torch.zeros(p.shape, dtype=torch.uint8, device=p.device)
-            for p in levs]
     rec_t = sched.recs.contiguous()
-    st = _build.stream(lev_y.device)
+    st = _build.stream(levs[0].device)
     P = _build.ptr
     for base, kmax in sched.levels:
         rc = lib.ks_intra_recon_level(
@@ -357,7 +417,6 @@ def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
             P(tables), kmax, F, H, W, int(strong), st)
         _build.check(rc, "ks_intra_recon_level")
         _build.count("intra_recon")
-    return tuple(recs)
 
 
 def recon_intra_frames(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
@@ -400,3 +459,176 @@ def code_intra_frames_into(srcs, recs, levs, sched: LevelSchedule,
     from ..interop import device_tables
     code_intra_frames_into_cuda(srcs, recs, levs, sched, strong,
                                 device_tables(srcs[0].device))
+
+
+def recon_intra_frames_into(levs, recs, sched: LevelSchedule, strong: bool,
+                            reference: bool = False) -> None:
+    """K11 in place over existing reconstruction planes (F, H, W): levs
+    int16, recs uint8. Only the scheduled CUs are reconstructed; they read
+    neighbours no CU of the schedule writes from the planes as given (the
+    intra CUs of a decoded P picture over its inter reconstruction). CUDA
+    tensors launch the kernel; CPU tensors, or reference=True, run the
+    plain version."""
+    sched = sched.to(levs[0].device)
+    if levs[0].device.type != "cuda" or reference:
+        _scan_plain(None, recs, levs, sched, strong)
+        return
+    from ..interop import device_tables
+    recon_intra_frames_into_cuda(levs, recs, sched, strong,
+                                 device_tables(levs[0].device))
+
+
+# ---------------------------------------------------------------- K18
+
+# the reference's `_dense_residual` classes: (this plane's tile size, the
+# luma CU log2 the size map carries)
+_LUMA_CLASSES = ((8, 3), (16, 4), (32, 5))
+_CHROMA_CLASSES = ((4, 3), (8, 4), (16, 5))
+
+
+def _dense_residual(coef, qp_map, size_pix, classes):
+    """The reference's dense residual: every aligned tile of each class
+    dequantised and inverse transformed with the QP at its origin, each
+    sample taking the class its CU has. coef (H, W) int16, qp_map one QP
+    per 4 samples of this plane, size_pix (H, W) the luma CU log2."""
+    H, W = coef.shape
+    resid = torch.zeros((H, W), dtype=torch.int32, device=coef.device)
+    for n, sel in classes:
+        tiles = coef.to(torch.int32).reshape(H // n, n, W // n, n) \
+            .transpose(1, 2).reshape(-1, n, n)
+        step = max(n // 4, 1)
+        qp = qp_map[::step, ::step].reshape(-1).to(torch.int32)
+        r = dequant_itx(tiles, qp, n).reshape(H // n, W // n, n, n) \
+            .transpose(1, 2).reshape(H, W)
+        resid = torch.where(size_pix == sel, r, resid)
+    return resid
+
+
+def inter_recon_plain(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb,
+                      qp4_cr, inter8, sched, strong, width, height):
+    """Plain PyTorch version of K18's reconstruction (the reference's
+    `_recon_inter_filter_core` before its filters, for uni-prediction
+    without weights): MC, the dense residual on inter cells, the seeded
+    intra scan. See `recon_inter_filter`."""
+    from .mc import mc_planes
+    h8, w8 = log2m8.shape
+    pred = mc_planes(refs, slot0, mv0, h8, w8, width, height,
+                     reference=True)
+    size = log2m8.to(torch.int32).repeat_interleave(8, 0) \
+        .repeat_interleave(8, 1)
+    inter = inter8.bool().repeat_interleave(8, 0).repeat_interleave(8, 1)
+    recs = []
+    for c, (p, coef) in enumerate(zip(pred, coefs)):
+        sub = slice(None, None, 1 if c == 0 else 2)
+        r = _dense_residual(coef, (qp4, qp4_cb, qp4_cr)[c], size[sub, sub],
+                            _LUMA_CLASSES if c == 0 else _CHROMA_CLASSES)
+        recs.append((p.to(torch.int32)
+                     + torch.where(inter[sub, sub], r, 0)).clamp(0, 255)
+                    .to(torch.uint8)[None])
+    if sched is not None:
+        recon_intra_frames_into([c[None] for c in coefs], recs, sched, strong,
+                                reference=True)
+    return recs
+
+
+def inter_tu_list(log2m8: np.ndarray, inter8: np.ndarray) -> np.ndarray:
+    """(K, 4) int32 records (plane, x, y, n) of the transform units of the
+    inter CUs (TU == CU, 8 to 32 luma samples; a 64 CU carries no residual
+    on this path): the luma TU and its two chroma TUs at half size."""
+    h8, w8 = log2m8.shape
+    r, c = np.mgrid[0:h8, 0:w8]
+    lg = log2m8.astype(np.int32)
+    n8 = 1 << np.clip(lg - 3, 0, 3)
+    origin = inter8 & (lg >= 3) & (lg <= 5) & (r % n8 == 0) & (c % n8 == 0)
+    rr, cc = r[origin], c[origin]
+    n = (8 * n8[origin]).astype(np.int32)
+    luma = np.stack([np.zeros_like(n), 8 * cc, 8 * rr, n], 1)
+    chroma = [np.stack([np.full_like(n, pl), 4 * cc, 4 * rr, n // 2], 1)
+              for pl in (1, 2)]
+    return np.concatenate([luma] + chroma).astype(np.int32)
+
+
+def inter_recon_cuda(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
+                     inter8, sched, strong, width, height):
+    """K18's reconstruction on the card: K14 (`ks_inter_mc`) into the
+    reconstruction planes, one launch of `ks_inter_recon` over the inter
+    TUs and K11 over the intra CUs, both in place."""
+    from ..interop import device_tables
+    from .mc import mc_planes_cuda
+    for t in coefs:
+        if t.dtype != torch.int16 or not t.is_cuda or not t.is_contiguous():
+            raise ValueError("coefficient planes must be contiguous int16 "
+                             "CUDA tensors")
+    dev = coefs[0].device
+    H, W = coefs[0].shape
+    h8, w8 = log2m8.shape
+    tab = device_tables(dev)
+    recs = mc_planes_cuda(refs, slot0, mv0, h8, w8, width, height)
+    tus = torch.from_numpy(inter_tu_list(
+        log2m8.cpu().numpy(), inter8.cpu().numpy().astype(bool))).to(dev)
+    qps = [q.to(device=dev, dtype=torch.int32).contiguous()
+           for q in (qp4, qp4_cb, qp4_cr)]
+    P = _build.ptr
+    _build.check(_build.kernels().ks_inter_recon(
+        P(tus), P(coefs[0]), P(coefs[1]), P(coefs[2]), P(recs[0]),
+        P(recs[1]), P(recs[2]), P(qps[0]), P(qps[1]), P(qps[2]), P(tab),
+        tus.shape[0], H, W, _build.stream(dev)), "ks_inter_recon")
+    _build.count("inter_recon")
+    recs = [r[None] for r in recs]
+    if sched is not None:
+        recon_intra_frames_into([c[None] for c in coefs], recs, sched, strong)
+    return recs
+
+
+def recon_inter_filter(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
+                       inter8, sched: LevelSchedule | None, bs_v, bs_h,
+                       sao_params, strong: bool, deblock: bool,
+                       sao_chroma: bool, boff: int, toff: int, cbo: int,
+                       cro: int, width: int, height: int, cs: int,
+                       reference: bool = False):
+    """Reconstruction of one parsed P picture (K18): uni-predicted MC from
+    the per-8x8-cell motion, the dequantised, inverse-transformed residual
+    of the inter CUs' TUs (TU == CU) added and clipped, the intra CUs
+    reconstructed over it from their levels (the seeded K11 scan), then
+    deblocking (K7) and SAO (K9).
+
+    refs (R, H, W) / (R, H/2, W/2) uint8 stacks; slot0 (h8*w8,) slots
+    (>= 0), mv0 (h8*w8, 2) quarter-pel; coefs (y, cb, cr) int16 planes;
+    log2m8 (h8, w8) CU log2 per cell; qp4 (H/4, W/4) luma QP, qp4_cb/qp4_cr
+    (H/8, W/8) chroma QPs with the PPS and slice offsets; inter8 (h8, w8)
+    bool, the parsed inter cells; sched the intra CUs' schedule or None;
+    bs_v/bs_h (H/4, W/4) strengths; sao_params (type, offs, bpos, eocl)
+    int8 or None; cbo/cro the PPS chroma offsets deblocking uses.
+    Returns the (y, cb, cr) uint8 planes. CUDA coefficient planes launch
+    the kernels; CPU planes, or reference=True, run the plain versions."""
+    from ..utils.trace import stage
+    from .deblock import deblock_frames
+    from .saoapply import sao_apply_frames
+    dev = coefs[0].device
+    plain = dev.type != "cuda" or reference
+    if sched is not None:
+        sched = sched.to(dev)
+    with stage("dec.inter_recon"):
+        if plain:
+            planes = inter_recon_plain(
+                refs, slot0.to(dev), mv0.to(dev), coefs, log2m8.to(dev),
+                qp4.to(dev), qp4_cb.to(dev), qp4_cr.to(dev), inter8.to(dev),
+                sched, strong, width, height)
+        else:
+            # the TU list is built on the host from the host maps
+            planes = inter_recon_cuda(refs, slot0, mv0, coefs, log2m8, qp4,
+                                      qp4_cb, qp4_cr, inter8, sched, strong,
+                                      width, height)
+    if deblock:
+        with stage("dec.deblock"):
+            planes = deblock_frames(
+                *planes, bs_v.to(dev, torch.uint8)[None],
+                bs_h.to(dev, torch.uint8)[None],
+                qp4.to(dev, torch.uint8)[None], boff, toff, cbo, cro, width,
+                height, reference=reference)
+    if sao_params is not None:
+        with stage("dec.sao"):
+            planes = sao_apply_frames(
+                *planes, *(a.to(dev)[None] for a in sao_params), True,
+                sao_chroma, width, height, cs, reference=reference)
+    return tuple(p[0] for p in planes)

@@ -57,3 +57,29 @@ def test_cli_round_trip_on_cpu(tmp_path, capsys):
     # every all-intra picture is an IDR, so every POC is 0
     assert lines == ["POC 0 MD5 " + ",".join(frame_md5(r)) for r in recons]
     assert "QianYi H265 decoder passed" in out
+
+
+def test_cli_ippp_round_trip_on_cpu(tmp_path, capsys):
+    """The low-delay P configuration with the preset's SAO (BASELINE.json
+    config 2's flags): app_encoder writes encode_sequence's bytes and
+    app_decoder's md5 lines are the reconstructions'."""
+    frames = _frames()
+    yuv = tmp_path / "in.yuv"
+    yuv.write_bytes(b"".join(f.tobytes() for f in frames))
+    bs = tmp_path / "ippp.265"
+    argv = ["-i", str(yuv), "-wdt", str(W), "-hgt", str(H), "-frms", str(N),
+            "-b", str(bs), "-preset", "ultrafast", "-latency", "zerolatency",
+            "-iper", "0", "-qp", "30", "-rdoq", "0", "-fr", "30",
+            "-device", "cpu"]
+    assert app_encoder.main(argv) == 0
+    cfg = app_encoder.cfg_from_args(app_encoder.build_parser()
+                                    .parse_args(argv))
+    assert cfg.sao == 1 and cfg.intra_period == 0
+    want, recons = encode_sequence(frames, cfg, device="cpu")
+    assert bs.read_bytes() == want
+    capsys.readouterr()
+    rc = app_decoder.main(["-b", str(bs), "-md5", "1", "-device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    lines = [ln.split()[3] for ln in out.splitlines() if ln.startswith("POC ")]
+    assert lines == [",".join(frame_md5(r)) for r in recons]

@@ -344,8 +344,8 @@ def test_inter_decide_and_code_kernels_match_plain(dev):
                                          want_pred=True)
         want = intercode.code_inter_frame(*a, **dict(k, reference=True),
                                           want_pred=True)
-        for x, y in zip(got[0] + got[1] + got[2], want[0] + want[1]
-                        + want[2]):
+        for x, y in zip(got[0] + got[1] + got[3], want[0] + want[1]
+                        + want[3]):
             assert torch.equal(x, y)
         src, refs, slot0, mv0 = a[:4]
         h8, w8, pic_w, pic_h = a[10:14]
@@ -353,7 +353,7 @@ def test_inter_decide_and_code_kernels_match_plain(dev):
                              torch.full_like(slot0, -1).to(dev),
                              torch.zeros_like(mv0).to(dev), False, h8, w8,
                              pic_w, pic_h)
-        for x, y in zip(got[2], mc):
+        for x, y in zip(got[3], mc):
             assert torch.equal(x, y)
         n_intra += a[6] is not None
     assert n_intra > 0
@@ -365,3 +365,70 @@ def test_ippp_encode_kernels_match_plain(dev):
     b, rb = encode_sequence(frames, _ippp_cfg(), device=dev, reference=True)
     assert a == b
     assert [frame_md5(r) for r in ra] == [frame_md5(r) for r in rb]
+
+
+@pytest.mark.parametrize("tier", [1, 4])
+def test_sao_decide_kernel_matches_plain(dev, tier):
+    """K16 on K8's statistics of a noisy reconstruction against its
+    source, and on random statistics with ties."""
+    from ks265codec_tpu_torch.ops import saodecide as tsd
+    rng = np.random.RandomState(tier)
+    ncl, bo = (2 if tier <= 1 else 4), tier >= 3
+    src = [torch.from_numpy(rng.randint(0, 256, (1, 128 >> s, 192 >> s))
+                            .astype(np.uint8)).to(dev) for s in (0, 1, 1)]
+    rec = [(s.int() + torch.from_numpy(rng.randint(-6, 7, s.shape))
+            .to(dev)).clamp(0, 255).to(torch.uint8) for s in src]
+    stats = []
+    for r, s, sh in list(zip(rec, src, (0, 1, 1)))[:3 if bo else 1]:
+        st = tss.sao_stats_frames(r, s, 176 >> sh, 120 >> sh, 64 >> sh, ncl,
+                                  bo)
+        stats.append(tuple(a[0] if a is not None else None for a in st))
+    tied = [tuple(torch.from_numpy(rng.randint(-2, 3, a.shape) * 4)
+                  .abs().int().to(dev) if a is not None else None
+                  for a in st) for st in stats]
+    for st in (stats, tied):
+        for qp in (22, 30, 37):
+            got = tsd.sao_decide(st, qp, tier)
+            want = tsd.sao_decide(st, qp, tier, reference=True)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+def test_inter_decode_kernel_matches_plain(dev):
+    """K18 on every P picture of a card decode of a 6-frame SAO-on IPPP
+    stream (some hold intra CUs)."""
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    data, _ = encode_sequence(_moving(6, 128, 96, 6), _ippp_cfg(sao=1),
+                              device=dev)
+    calls = []
+    orig = wf.recon_inter_filter
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    wf.recon_inter_filter = spy
+    try:
+        HevcDecoder(device=dev).decode_all(data)
+    finally:
+        wf.recon_inter_filter = orig
+    assert calls and any(a[9] is not None for a, _ in calls)
+    for a, k in calls:
+        got = wf.recon_inter_filter(*a, **dict(k, reference=False))
+        want = wf.recon_inter_filter(*a, **dict(k, reference=True))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_sao_ippp_encode_and_decode_on_the_card(dev):
+    """A 4-frame SAO-on IPPP encode on the kernels == on the plain
+    versions, and the card's decode of it == the encoder's recon."""
+    frames, cfg = _moving(4, 128, 96, 6), _ippp_cfg(sao=1)
+    a, ra = encode_sequence(frames, cfg, device=dev)
+    b, rb = encode_sequence(frames, cfg, device=dev, reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in ra]
+    assert want == [frame_md5(r) for r in rb]
+    dec = HevcDecoder(device=dev)
+    got = [frame_md5(f) for f in dec.decode_all(a)]
+    assert got == want and dec.fast_pictures == len(frames)

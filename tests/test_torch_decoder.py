@@ -11,6 +11,7 @@ two JAX-encoded streams the port cannot write yet: two slices per picture
 (KS265_DECODE_FAST=0), the oracle its fast path is held against, which
 needs no XLA compile."""
 
+import copy
 import types
 
 import numpy as np
@@ -29,7 +30,7 @@ from ks265codec_tpu_torch.encode.encoder import HevcEncoder, encode_sequence
 from ks265codec_tpu_torch.encode.intra_frame import (decision_maps8,
                                                      pad_plane,
                                                      tile_region_maps)
-from ks265codec_tpu_torch.hevc.slicehdr import I_SLICE, P_SLICE
+from ks265codec_tpu_torch.hevc.slicehdr import B_SLICE, I_SLICE, P_SLICE
 from ks265codec_tpu_torch.ops import decide as tdec
 from ks265codec_tpu_torch.ops import wavefront as twf
 from ks265codec_tpu_torch.utils.md5 import frame_md5
@@ -186,12 +187,40 @@ def test_decoder_matches_reference_decoder(name, monkeypatch):
 
 
 def test_inter_slices_are_not_ported():
+    """B slices and P slices with explicit weighted prediction raise; a
+    plain P slice is covered."""
     dec = HevcDecoder(device="cpu")
     enc = HevcEncoder(EncoderConfig(width=W, height=H, preset="ultrafast",
                                     intra_period=1), device="cpu")
-    hdr = types.SimpleNamespace(slice_type=P_SLICE)
-    with pytest.raises(NotImplementedError, match="inter decode"):
-        dec._fast_eligible(enc.sps, enc.pps, hdr)
+    b = types.SimpleNamespace(slice_type=B_SLICE, weights=None)
+    with pytest.raises(NotImplementedError, match="B slices"):
+        dec._fast_eligible(enc.sps, enc.pps, b)
+    wp = types.SimpleNamespace(slice_type=P_SLICE, weights=[[], []])
+    with pytest.raises(NotImplementedError, match="weighted prediction"):
+        dec._fast_eligible(enc.sps, enc.pps, wp)
+    p = types.SimpleNamespace(slice_type=P_SLICE, weights=None)
+    assert dec._fast_eligible(enc.sps, enc.pps, p)
+
+
+def test_p_slices_outside_coverage_raise_on_the_card():
+    """A P slice outside the P fast path (tiles, quantization groups
+    under 16 samples) takes the scalar walk on a CPU decoder and raises
+    on any other device, so the card is never bypassed silently."""
+    enc = HevcEncoder(EncoderConfig(width=W, height=H, preset="ultrafast",
+                                    intra_period=1), device="cpu")
+    p = types.SimpleNamespace(slice_type=P_SLICE, weights=None)
+    tiles = copy.copy(enc.pps)
+    tiles.tiles_enabled = 1
+    small_qg = copy.copy(enc.pps)
+    small_qg.cu_qp_delta_enabled = 1
+    small_qg.diff_cu_qp_delta_depth = 3
+    cpu, card = HevcDecoder(device="cpu"), HevcDecoder(device="cpu")
+    card.device = torch.device("cuda")      # no launch happens here
+    for pps, gap in ((tiles, "tiles"), (small_qg, "quantization groups")):
+        assert not cpu._fast_eligible(enc.sps, pps, p)
+        with pytest.raises(NotImplementedError, match=gap):
+            card._fast_eligible(enc.sps, pps, p)
+    assert card._fast_eligible(enc.sps, enc.pps, p)
 
 
 def test_fast_path_needs_the_native_library(monkeypatch):

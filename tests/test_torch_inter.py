@@ -230,7 +230,7 @@ def test_inter_code_plain_matches_reference(ref):
         (sy, scb, scr, ry, rcb, rcr, slot0, mv0, _, _, _, _, packs, cu_lam,
          segs, _, e2v, e2h, etbv, etbh, emvv, emvh, qp4, _, _) = a
         assert segs is not None
-        planes, coef = tic.code_inter_frame(
+        planes, coef, sao = tic.code_inter_frame(
             tuple(T(p) for p in (sy, scb, scr)),
             tuple(T(p) for p in (ry, rcb, rcr)), T(slot0), T(mv0),
             {key: tuple(T(v) for v in val) for key, val in packs.items()},
@@ -240,6 +240,7 @@ def test_inter_code_plain_matches_reference(ref):
             k["toff"], k["cbo"], k["cro"], k["deblock"], k["strong"])
         for got, want in zip(planes + coef, out[1:7]):
             assert np.array_equal(got.numpy(), want)
+        assert sao is None
 
 
 @pytest.mark.parametrize("bi", [False, True], ids=["uni", "bi"])
@@ -288,7 +289,7 @@ def test_stream_holds_p_pictures_with_intra_cus(ref, port):
 
 @pytest.mark.parametrize("over,what", [
     (dict(latency="offline", bframes=3), "B pictures"),
-    (dict(sao=1), "SAO in P pictures"),
+    (dict(aq_mode=1), "adaptive quantisation"),
     (dict(refs=2), "refs > 1"),
     (dict(tiles="2x1"), "tiles with inter coding"),
     (dict(weightp=True), "weighted prediction"),

@@ -1,17 +1,20 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Three runs, each profiled the same way after a warm-up: the encode of the
+Four runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
 QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
-the decode of the stream it writes, and the low-delay P encode of
-chip_smoke.py's inter path (1280x720, ultrafast, zerolatency, QP 30,
-intra_period 0, SAO off, 24 synthetic frames: one IDR, then P pictures).
+the decode of the stream it writes, the low-delay P encode of
+chip_smoke.py's inter path (BASELINE.json config 2: 1280x720, ultrafast,
+zerolatency, QP 30, intra_period 0, SAO from the preset, 24 synthetic
+frames: one IDR, then P pictures) and the decode of that IPPP stream.
 Each is run once plain for the fps, once with the stage trace on (host
 wall time per stage: for the all-intra encode upload, decide, code,
 deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
 and slice writing; for the decode the reconstruction, deblocking and SAO
 of the fast path; for the P encode the inter engine's stages `inter.*`
-and slice writing), once under
+and slice writing; for the P decode the fast path's preparation, its
+reconstruction `dec.inter_recon` (K14, the inter TUs' residual, K11),
+`dec.deblock` and `dec.sao`), once under
 torch.profiler for the device time of every kernel and the device's busy
 share of the wall time, and once under cProfile for the host functions
 that take the wall time (cProfile slows Python calls, so its times are
@@ -57,7 +60,7 @@ def encode(frames):
 def encode_ippp(frames):
     enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="ultrafast",
                                     latency="zerolatency", rc=0, qp=30,
-                                    intra_period=0, frame_rate=30, sao=0))
+                                    intra_period=0, frame_rate=30))
     out = []
     for f in frames:
         out += enc.encode_frame(f)
@@ -139,6 +142,9 @@ def main() -> int:
     ippp = frames[:24]
     encode_ippp(ippp[:4])                               # warm-up
     profile("P encode", lambda: encode_ippp(ippp), len(ippp))
+    istream = b"".join(e.data for e in encode_ippp(ippp))
+    decode(istream)                                     # warm-up
+    profile("P decode", lambda: decode(istream), len(ippp))
     return 0
 
 
