@@ -26,7 +26,13 @@ port's package is not beside it. Phases, each printed as one line:
      prediction K17 builds), K17 inter coding (recon, levels, SAO
      parameters and prediction, with the seeded K6 scan, K7 and SAO) and
      K16 SAO decision on K8's statistics of its deblocked planes at tier
-     1 (the path's) and tier 4;
+     1 (the path's) and tier 4; then the `fast` preset's kernels: K5 at
+     effort 1 on the 16-frame batch (all 13 maps, the frame total cplx
+     among them), K6 with RDOQ and sign hiding (tiles 8x6) on its
+     decisions, K2 alone (RDOQ / sign hiding, csrc/rdoq.cu) on seeded
+     random coefficients at every TU size, scan and flag combination, as
+     many TUs of each size as that batch's schedule holds, and K17 with
+     sign hiding on the first P picture of bench.py's inter leg;
   4. the main path: HevcEncoder with bench.py's configuration (1280x720,
      ultrafast, QP 27, all-intra, tiles 8x6, SAO from the preset) on 32
      frames, once to warm up and once timed with the launch counts reset
@@ -61,12 +67,27 @@ port's package is not beside it. Phases, each printed as one line:
      K11, K7 and K9 and prints the encoder's md5s, app_encoder with
      -latency zerolatency -iper 0 on 4 frames launches the inter kernels
      and K16 and writes HevcEncoder's bytes, and app_decoder -md5 1 on
-     that stream launches K18 and prints the encoder's md5s.
-The line before the last is the JSON kernel table with the main path's
-encode and decode fps and the low-delay P path's encode and decode fps;
-the last line is
-the device JSON. Nothing here
-imports jax or ks265codec_tpu.
+     that stream launches K18 and prints the encoder's md5s;
+ 10. bench.py's inter leg (fast, zerolatency, QP 30, intra_period 0, SAO
+     tier 3): 8 frames on the kernels give the plain versions' stream and
+     recons; then, after a warm-up, one timed 24-frame encode with the
+     launch counts reset just before: K5 (effort 1), K6 with K2 inside
+     (the IDR's RDOQ and sign hiding, the seeded scan's sign hiding), K7,
+     K8, K9, K12, K13, K15, K14, K17 with K2's sign hiding and K16 must
+     have launched, luma PSNR > 30 dB;
+ 11. the card decode of that stream, timed with the counts reset: all 24
+     pictures through the fast paths, md5s equal to the encoder's recon,
+     the first 4 equal with reference=True;
+ 12. a 16-frame fast all-intra encode (QP 27, tiles 8x6), timed after a
+     warm-up with the counts reset, equal to its plain-version encode and decoded on the
+     card to the encoder's md5s;
+ 13. app_encoder -preset fast -iper 1 with the default -rdoq on 4 frames
+     writes HevcEncoder's bytes, and app_decoder -md5 1 prints its md5s.
+K2 runs inlined in K6 and K17: its launches are those of the K6 and K17
+kernels that ran its code (`intra_level_k2`, `inter_tu_class_k2`).
+The line before the last is the JSON kernel table with the fps of every
+timed leg; the last line is the device JSON. Nothing here imports jax or
+ks265codec_tpu.
 """
 
 from __future__ import annotations
@@ -88,8 +109,14 @@ import torch
 
 W, H, FRAMES = 1280, 720, 32
 INTER_FRAMES = 24       # bench.py's inter leg
+# bench.py's inter leg: bench_ours_inter's configuration
+FAST_INTER = dict(width=1280, height=720, preset="fast",
+                  latency="zerolatency", qp=30, intra_period=0,
+                  frame_rate=30)
 INTER_ROWS = ("lookahead", "motion_search", "inter_decide", "inter_mc",
               "inter_code", "sao_decide")
+FAST_ROWS = ("rdoq_sbh", "decide_effort1", "intra_scan_rdoq_sbh",
+             "inter_code_sbh")
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
 # SMs x 64 INT32 lanes per SM (Hopper SM) x 1.98 GHz boost clock, the clock
 # behind the data sheet's 67 TFLOP/s FP32. FP32 rate: 132 SMs x 128 FP32
@@ -330,15 +357,7 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     a, k = calls["code_inter_frame"][-1]
     if k.get("sao") is None:
         raise AssertionError("the P path ran K17 without SAO")
-    gk = tic.code_inter_frame(*a, **dict(k, reference=False),
-                              want_pred=True)
-    gp = tic.code_inter_frame(*a, **dict(k, reference=True), want_pred=True)
-    torch.cuda.synchronize()
-    for part, x, y in zip(("recon", "levels", "SAO parameters",
-                           "prediction"), gk, gp):
-        for c, u, v in zip(range(4), x, y):
-            if not torch.equal(u, v):
-                raise AssertionError(f"K17 inter code: {part} {c} differs")
+    gk, gp = k17_outputs(a, k, "K17 inter code")
     src, refs, slot0, mv0 = a[:4]
     h8, w8, pic_w, pic_h = a[10:14]
     mca = (refs, slot0.to(dev), mv0.to(dev), h8, w8, pic_w, pic_h)
@@ -368,51 +387,10 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     print(f"phase K14 MC ({h8 * w8} cells): kernel planes == plain == K17's "
           f"prediction, kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
           f"{bnd:.4f} ms ({by})", flush=True)
-    ms = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
-                                                          reference=False)))
-    plain = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
-                                                            reference=True)),
-                    reps=3, warm=False)
-    # K8's statistics of the first P picture's deblocked planes (K17
-    # without SAO) against its sources, at a tier; K17's SAO input at the
-    # path's tier, and K16's below
+    rows["inter_code"], sao_stats = inter_code_phase(
+        a, k, gk, gp, "inter_code", ["inter_tu_class", "inter_gate",
+                                     "inter_finish", "inter_bs"])
     tier, qp, cs = k["sao"]
-    deb, _, _ = tic.code_inter_frame(*a, **dict(k, sao=None))
-
-    def sao_stats(tier):
-        ncl, bo = (2 if tier <= 1 else 4), tier >= 3
-        stats = []
-        for r, x, sh in list(zip(deb, src, (0, 1, 1)))[:3 if bo else 1]:
-            st = sst.sao_stats_frames(r[None], x[None], pic_w >> sh,
-                                      pic_h >> sh, cs >> sh, ncl, bo)
-            stats.append(tuple(t[0] if t is not None else None for t in st))
-        return stats
-
-    # operations: MC as K14's, per coded TU sample the forward and inverse
-    # transforms (4 stages of n multiply-adds, matrix form) and about 10
-    # for residual, quantisation, dequantisation and reconstruction, and
-    # SAO as K8's, K16's and K9's rows count it (this run's tier,
-    # statistics and type maps; K16's at the FP32 rate); bytes: the
-    # picture, the reference, the recon and the int16 levels once each
-    tu_ops = sum(int(p[4].sum()) * n * n * (4 * n + 10)
-                 for (_, n), p in a[4].items())
-    ncl = 2 if tier <= 1 else 4
-    sao_ops = (src[0].numel() * 15.0 * ncl
-               + 12.0 * int((gk[2][0][0] != 0).sum()) * cs * cs)
-    bnd, by = row("inter_code", "inter_code.cu", "ops/intercode.py:141",
-                  max(max_abs_err(gk[0], gp[0]), max_abs_err(gk[1], gp[1]),
-                      max_abs_err(gk[2], gp[2])),
-                  ms, plain, npx * (1 + 1 + 1 + 2),
-                  mc_total + 3 * npx + tu_ops + sao_ops,
-                  ["inter_tu_class", "inter_gate", "inter_finish",
-                   "inter_bs"],
-                  fp_ops=decide_ops(sao_stats(tier), tier, gk[2]))
-    print(f"phase K17 inter code (seeded intra scan "
-          f"{'with' if a[6] is not None else 'without'} intra CUs, SAO tier "
-          f"{tier}): recon, levels, SAO parameters and prediction equal, "
-          f"kernel {ms:.3f} ms (with K14, the seeded K6, K7, K8, K16 and "
-          f"K9), plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
-          flush=True)
 
     # K16 on those statistics: tier 1 (the path's) and tier 4 (all
     # classes, band offset, chroma)
@@ -445,6 +423,277 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
               f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.5f} ms "
               f"({by})", flush=True)
     return rows
+
+
+def k17_outputs(a, k, what: str):
+    """K17 on one recorded P picture, kernel and plain version: recon,
+    levels, SAO parameters and prediction must be equal."""
+    from ks265codec_tpu_torch.ops import intercode as tic
+    gk = tic.code_inter_frame(*a, **dict(k, reference=False),
+                              want_pred=True)
+    gp = tic.code_inter_frame(*a, **dict(k, reference=True), want_pred=True)
+    torch.cuda.synchronize()
+    for part, x, y in zip(("recon", "levels", "SAO parameters",
+                           "prediction"), gk, gp):
+        for c, u, v in zip(range(4), x, y):
+            if not torch.equal(u, v):
+                raise AssertionError(f"{what}: {part} {c} differs")
+    return gk, gp
+
+
+def fast_kernel_phases(src, dargs, batch_tiled, yuv, dev) -> dict:
+    """The `fast` preset's kernels against their plain versions on the
+    card: K2 alone (every TU size, scan and flag combination), K5 at
+    effort 1 and K6 with RDOQ and sign hiding (tiles 8x6) on the main
+    path's 16-frame 720p batch, K17 with sign hiding on the first P
+    picture of bench.py's inter leg. Returns their table rows."""
+    from ks265codec_tpu_torch.encode import rdoq as trdoq
+    from ks265codec_tpu_torch.encode.config import EncoderConfig
+    from ks265codec_tpu_torch.encode.encoder import HevcEncoder
+    from ks265codec_tpu_torch.encode.intra_frame import decision_maps8
+    from ks265codec_tpu_torch.interop import device_tables
+    from ks265codec_tpu_torch.ops import decide as dcd
+    from ks265codec_tpu_torch.ops import intercode as tic
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    rows = {}
+    F, ph, pw = src[0].shape
+
+    # K5 at effort 1: the full 35-mode sweep at every tier, the top-3
+    # rough-RD candidates, the 5-candidate chroma search; all 13 maps,
+    # the frame total cplx among them
+    got = dcd.decide_frames_cuda(*src, *dargs, effort=1)
+    want = dcd.decide_frames_plain(*src, *dargs, effort=1)
+    torch.cuda.synchronize()
+    for name in dcd.MAP_NAMES:
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(f"K5 decide (effort 1): map {name} differs")
+    err = max(max_abs_err(got[k].to(torch.float64), want[k].to(torch.float64))
+              for k in dcd.MAP_NAMES)
+    ms = cuda_ms(lambda: dcd.decide_frames_cuda(*src, *dargs, effort=1))
+    plain = cuda_ms(lambda: dcd.decide_frames_plain(*src, *dargs, effort=1),
+                    reps=3, warm=False)
+    # operations: every mode's prediction + 8x8 Hadamard (about 10 integer
+    # ops per sample and mode) at all three tiers; the 3 candidates' rough
+    # cost (the forward transform only: 2 stages of n multiply-adds per
+    # sample, matrix form);
+    # the 5 chroma candidates' prediction + Hadamard on both planes; the
+    # winner's chroma rough cost; bytes: the sources and the maps once
+    ops = 0.0
+    for n in (16, 8, 32):
+        nb = F * (ph // n) * (pw // n)
+        nc = n // 2
+        ops += nb * (35 * n * n * 10 + 3 * n * n * 2 * n
+                     + 2 * 5 * nc * nc * 10 + 2 * nc * nc * 2 * nc)
+    nbytes = F * ph * pw * 1.5 + sum(
+        v.numel() * v.element_size() for v in got.values())
+    bnd, by = bound_ms(nbytes, ops)
+    rows["decide_effort1"] = dict(
+        name="decide_effort1", route="cuda",
+        source="ks265codec_tpu_torch/csrc/decide.cu",
+        replaces="ks265codec_tpu/ops/decide.py:397", max_abs_err=err, ms=ms,
+        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        counters=["decide_pass_a", "decide_pass_b", "decide_split"])
+    print(f"phase K5 decide (effort 1): 13 maps equal (cplx "
+          f"{float(got['cplx'].sum()):.1f} over {F} frames), kernel "
+          f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
+
+    # K6 with RDOQ and sign hiding on those decisions, tiles 8x6
+    maps = {k: v.cpu().numpy() for k, v in got.items()}
+    sps = batch_tiled["sps"]
+    batch = []
+    for f in range(F):
+        log2m, modes8, cmodes8 = decision_maps8(
+            maps["split32"][f], maps["split16"][f], maps["mode8"][f],
+            maps["mode16"][f], maps["mode32"][f], sps, ph >> 3, pw >> 3,
+            maps["cm8"][f], maps["cm16"][f], maps["cm32"][f])
+        batch.append(dict(log2m=log2m, modes8=modes8, cmodes8=cmodes8,
+                          qp_map8=np.full(log2m.shape, 27, np.uint8),
+                          tile8=batch_tiled["tile8"]))
+    pps = batch_tiled["pps"]
+    sched = wf.WavefrontIntraCoder().pack(
+        batch, pps.cb_qp_offset, pps.cr_qp_offset, sps).to(dev)
+    tab = device_tables(dev)
+    strong = bool(sps.strong_intra_smoothing)
+    gk = wf.code_intra_frames_cuda(*src, sched, strong, tab, True, True)
+    gp = wf.code_intra_frames_plain(*src, sched, strong, True, True)
+    torch.cuda.synchronize()
+    for part, x, y in (("recon", gk[0], gp[0]), ("levels", gk[1], gp[1])):
+        for c, u, v in zip("YUV", x, y):
+            if not torch.equal(u, v):
+                raise AssertionError(f"K6 intra scan (RDOQ and sign hiding):"
+                                     f" {part} plane {c} differs")
+    ms = cuda_ms(lambda: wf.code_intra_frames_cuda(*src, sched, strong, tab,
+                                                   True, True))
+    plain = cuda_ms(lambda: wf.code_intra_frames_plain(*src, sched, strong,
+                                                       True, True),
+                    reps=3, warm=False)
+    recs = sched.recs.cpu().numpy()
+    sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
+    # operations: K6's (4 transform stages of n multiply-adds per sample,
+    # matrix form) and K2's per coefficient (about 20 integer and 18
+    # float32: the two candidates' costs, the group pass); bytes: sources
+    # in, recon and int16 levels out
+    ncoef = float(np.sum(sizes ** 2 * 1.5))
+    bnd, by = bound_ms(F * ph * pw * 1.5 * (1 + 1 + 2),
+                       float(np.sum(sizes ** 2 * 4 * sizes
+                                    + 2 * (sizes / 2) ** 2 * 4 * (sizes / 2)))
+                       + 20 * ncoef, 18 * ncoef)
+    rows["intra_scan_rdoq_sbh"] = dict(
+        name="intra_scan_rdoq_sbh", route="cuda",
+        source="ks265codec_tpu_torch/csrc/intra_scan.cu",
+        replaces="ks265codec_tpu/ops/wavefront.py:647",
+        max_abs_err=max(max_abs_err(gk[0], gp[0]), max_abs_err(gk[1], gp[1])),
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        counters=["intra_level_k2"])
+    print(f"phase K6 intra scan (RDOQ and sign hiding, tiles 8x6): recon and "
+          f"levels equal, {len(sched.levels)} levels, kernel {ms:.3f} ms, "
+          f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K2 alone: per TU size as many TUs as this batch's schedule holds
+    # (luma, and two chroma TUs at half size), seeded random coefficients
+    # (sparse, log-uniform magnitudes up to the escape levels), mixed
+    # scans; every flag combination is held against the plain version,
+    # RDOQ with sign hiding (the intra path's) is timed
+    rng = np.random.RandomState(5)
+    counts = {n: 0 for n in (4, 8, 16, 32)}
+    for n in (8, 16, 32):
+        counts[n] += int((sizes == n).sum())
+        counts[n // 2] += 2 * int((sizes == n).sum())
+    cases = {}
+    for n, K in counts.items():
+        mag = np.exp(rng.uniform(0, 10.4, (K, n, n)))
+        c = np.where(rng.rand(K, n, n) < 0.3, mag, 0) * rng.choice(
+            [-1, 1], (K, n, n))
+        cases[n] = tuple(torch.from_numpy(a).to(dev) for a in (
+            np.clip(c, -32767, 32767).astype(np.int32),
+            np.full(K, 27, np.int32), rng.randint(0, 3, K).astype(np.int32)))
+    err = 0.0
+    for n, (c, q, sc) in cases.items():
+        for flags in (1, 2, 3, 6):
+            a = trdoq.rdoq_sbh_cuda(c, q, sc, n, flags)
+            b = trdoq.rdoq_sbh_plain(c, q, sc, n, flags)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"K2 RDOQ/SBH (n {n}, flags {flags}): "
+                                     "kernel and plain differ")
+            err = max(err, max_abs_err(a, b))
+
+    def run(fn):
+        return [fn(c, q, sc, n, 3) for n, (c, q, sc) in cases.items()]
+
+    ms = cuda_ms(lambda: run(trdoq.rdoq_sbh_cuda))
+    plain = cuda_ms(lambda: run(trdoq.rdoq_sbh_plain), reps=3, warm=False)
+    ncoef = float(sum(K * n * n for n, K in counts.items()))
+    # bytes: the int32 coefficients in, the int32 levels out, qp and scan;
+    # operations per coefficient as in K6's row: about 20 integer, 18
+    # float32
+    bnd, by = bound_ms(ncoef * 8 + 8 * sum(counts.values()), 20 * ncoef,
+                       18 * ncoef)
+    rows["rdoq_sbh"] = dict(
+        name="rdoq_sbh", route="cuda",
+        source="ks265codec_tpu_torch/csrc/rdoq.cuh",
+        replaces="ks265codec_tpu/encode/rdoq.py:100", max_abs_err=err,
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        counters=["intra_level_k2", "inter_tu_class_k2"])
+    tus = ", ".join(f"{K} TUs of {n}" for n, K in counts.items())
+    print(f"phase K2 RDOQ/SBH alone ({tus}; flags RDOQ, SBH, both, SBH "
+          f"after inter rounding): equal, kernel "
+          f"{ms:.3f} ms (RDOQ and SBH, all sizes), plain {plain:.3f} ms, "
+          f"bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K17 with sign hiding on the first P picture of bench.py's inter leg
+    calls = []
+    fn = tic.code_inter_frame
+
+    def spy(*a, **k):
+        calls.append((a, k))
+        return fn(*a, **k)
+
+    tic.code_inter_frame = spy
+    try:
+        enc = HevcEncoder(EncoderConfig(**FAST_INTER))
+        for fr in yuv[:2]:
+            enc.encode_frame(fr)
+        enc.flush()
+    finally:
+        tic.code_inter_frame = fn
+    a, k = calls[-1]
+    if not k.get("sbh") or k.get("sao") is None:
+        raise AssertionError("the fast P path ran K17 without sign hiding "
+                             "or SAO")
+    gk, gp = k17_outputs(a, k, "K17 inter code (sign hiding)")
+    rows["inter_code_sbh"], _ = inter_code_phase(
+        a, k, gk, gp, "inter_code_sbh", ["inter_tu_class_k2", "inter_gate",
+                                         "inter_finish", "inter_bs"])
+    return rows
+
+
+def inter_code_phase(a, k, gk, gp, name: str, counters: list):
+    """K17's table row on one recorded P picture whose kernel (gk) and
+    plain (gp) outputs were compared equal: its time and its plain
+    version's, and its bound. Returns the row and the picture's K8
+    statistics at a tier (a function of the tier)."""
+    from ks265codec_tpu_torch.ops import intercode as tic
+    from ks265codec_tpu_torch.ops import saostats as sst
+    src, mv0 = a[0], a[3]
+    pic_w, pic_h = a[12:14]
+    ms = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
+                                                          reference=False)))
+    plain = cuda_ms(lambda: tic.code_inter_frame(*a, **dict(k,
+                                                            reference=True)),
+                    reps=3, warm=False)
+    # K8's statistics of the P picture's deblocked planes (K17 without
+    # SAO) against its sources, at a tier; K17's SAO input at the path's
+    # tier, and K16's
+    tier, qp, cs = k["sao"]
+    deb, _, _ = tic.code_inter_frame(*a, **dict(k, sao=None))
+
+    def sao_stats(tier):
+        ncl, bo = (2 if tier <= 1 else 4), tier >= 3
+        stats = []
+        for r, x, sh in list(zip(deb, src, (0, 1, 1)))[:3 if bo else 1]:
+            st = sst.sao_stats_frames(r[None], x[None], pic_w >> sh,
+                                      pic_h >> sh, cs >> sh, ncl, bo)
+            stats.append(tuple(t[0] if t is not None else None for t in st))
+        return stats
+
+    # operations: MC as K14's row counts it (the separable filters this
+    # run's motion needs, 3 a sample to combine), per coded TU sample the
+    # forward and inverse transforms (4 stages of n multiply-adds, matrix
+    # form) and about 10 for residual, quantisation, dequantisation and
+    # reconstruction (with sign hiding about 8 more for K2's group pass),
+    # and SAO as K8's, K16's and K9's rows count it (this run's tier,
+    # statistics and type maps; K16's at the FP32 rate); bytes: the
+    # picture, the reference, the recon and the int16 levels once each
+    npx = src[0].numel() * 1.5
+    mc_total = float((mc_ops(mv0, 8, True)
+                      + 2 * mc_ops(mv0, 4, False)).sum())
+    per = 10 + (8 if k.get("sbh") else 0)
+    tu_ops = sum(int(p[4].sum()) * n * n * (4 * n + per)
+                 for (_, n), p in a[4].items())
+    ncl = 2 if tier <= 1 else 4
+    sao_ops = (src[0].numel() * 15.0 * ncl
+               + 12.0 * int((gk[2][0][0] != 0).sum()) * cs * cs)
+    bnd, by = bound_ms(npx * (1 + 1 + 1 + 2),
+                       mc_total + 3 * npx + tu_ops + sao_ops,
+                       decide_ops(sao_stats(tier), tier, gk[2]))
+    print(f"phase K17 inter code{' with sign hiding' if k.get('sbh') else ''}"
+          f" (seeded intra scan "
+          f"{'with' if a[6] is not None else 'without'} intra CUs, SAO tier "
+          f"{tier}): recon, levels, SAO parameters and prediction equal, "
+          f"kernel {ms:.3f} ms (with K14, the seeded K6, K7, K8, K16 and "
+          f"K9), plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
+    row = dict(name=name, route="cuda",
+               source="ks265codec_tpu_torch/csrc/inter_code.cu",
+               replaces="ks265codec_tpu/ops/intercode.py:141",
+               max_abs_err=max(max_abs_err(gk[0], gp[0]),
+                               max_abs_err(gk[1], gp[1]),
+                               max_abs_err(gk[2], gp[2])),
+               ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+               library_ms=None, counters=counters, required=counters)
+    return row, sao_stats
 
 
 def k18_phase(calls: list, card: str) -> dict:
@@ -619,14 +868,14 @@ def main() -> int:
                     warm=False)
     # bytes: the source planes once, the maps once; operations: every
     # candidate prediction + 8x8 Hadamard (about 10 integer ops per sample
-    # and mode) and the winners' rough transform cost, luma and chroma (4
-    # stages of n multiply-adds per sample, in the matrix form the kernel
-    # computes; a butterfly needs fewer)
+    # and mode) and the winners' rough cost, luma and chroma (the forward
+    # transform only: 2 stages of n multiply-adds per sample, in the matrix
+    # form the kernel computes; a butterfly needs fewer)
     ops = 0.0
     for n, cands in ((16, 35), (8, 7), (32, 7)):
         nb = F * (ph // n) * (pw // n)
         ops += nb * cands * n * n * 10
-        ops += nb * (n * n * 4 * n + 2 * (n // 2) ** 2 * 4 * (n // 2))
+        ops += nb * (n * n * 2 * n + 2 * (n // 2) ** 2 * 2 * (n // 2))
     nbytes = F * ph * pw * 1.5 + sum(
         v.numel() * v.element_size() for v in got.values())
     bnd, by = bound_ms(nbytes, ops)
@@ -914,6 +1163,11 @@ def main() -> int:
             setattr(m, name, fn)
     torch.cuda.synchronize()
     rows.update(inter_kernel_phases(calls, yuv, dev, card))
+    # the fast preset's kernels: K2, K5 at effort 1, K6 with RDOQ and
+    # sign hiding (on the batch above, tiles 8x6), K17 with sign hiding
+    _, tile8, _ = tile_region_maps(pps, sps)
+    rows.update(fast_kernel_phases(src, dargs, dict(sps=sps, pps=pps,
+                                                    tile8=tile8), yuv, dev))
 
     # ---- phase 4: the main path through the encoder's entry points, in
     # bench.py's configuration (SAO from the preset: ultrafast = tier 1)
@@ -1220,9 +1474,174 @@ def main() -> int:
           f"{''.join(e.slice_type for e in cefs)}) == HevcEncoder, "
           "app_decoder -md5 1 == encoder md5s", flush=True)
 
+    # ---- phase 10: bench.py's inter leg (fast, zerolatency, QP 30,
+    # intra_period 0: RDOQ and sign hiding in the IDR, sign hiding in the
+    # P pictures, the effort-1 decision, SAO tier 3): 8 frames on the
+    # kernels == on the plain versions, then a timed 24-frame encode after
+    # a warm-up, with the launch counts reset just before
+    def fencode(frames_in, reference=False, **over):
+        enc = HevcEncoder(EncoderConfig(**dict(FAST_INTER, **over)),
+                          reference=reference)
+        efs = []
+        for fr in frames_in:
+            efs += enc.encode_frame(fr)
+        efs += enc.flush()
+        return efs
+
+    ka = fencode(yuv[:8])
+    kb = fencode(yuv[:8], reference=True)
+    if b"".join(e.data for e in ka) != b"".join(e.data for e in kb) or \
+            md5s(e.recon for e in ka) != md5s(e.recon for e in kb):
+        raise AssertionError("8-frame fast IPPP stream or recon: kernels and "
+                             "plain versions differ")
+    print(f"phase fast inter kernels vs plain stream: 8 frames "
+          f"({sum(len(e.data) for e in ka)} bytes, slice types "
+          f"{''.join(e.slice_type for e in ka)}) identical, recon md5s "
+          "equal", flush=True)
+    fencode(yuv[:4])                             # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fefs = fencode(yuv[:INTER_FRAMES])
+    torch.cuda.synchronize()
+    fsecs = time.perf_counter() - t0
+    fcounts = dict(_build.launches)
+    for key in ("decide_effort1", "intra_scan", "intra_scan_rdoq_sbh",
+                "rdoq_sbh", "deblock", "sao_stats", "sao_apply",
+                "lookahead", "motion_search", "inter_decide", "inter_mc",
+                "inter_code_sbh", "sao_decide"):
+        n_launch = check_counts(rows[key].get("required",
+                                              rows[key]["counters"]),
+                                fcounts, "fast low-delay P path")
+        if key in ("decide_effort1", "intra_scan_rdoq_sbh", "rdoq_sbh",
+                   "inter_code_sbh"):
+            rows[key]["launches"] = n_launch
+    fstream = b"".join(e.data for e in fefs)
+    frec = sorted(fefs, key=lambda e: e.display_idx)
+    fmse = np.mean([np.mean((e.recon.y.astype(np.float64)
+                             - f.y.astype(np.float64)) ** 2)
+                    for e, f in zip(frec, yuv)])
+    fpsnr = 10 * np.log10(255.0 ** 2 / fmse)
+    if not fpsnr > 30.0:
+        raise AssertionError(f"fast IPPP luma PSNR {fpsnr:.2f} dB <= 30 dB")
+    fast_inter_fps = len(fefs) / fsecs
+    ftypes = "".join(e.slice_type for e in fefs)
+    if ftypes.count("P") < INTER_FRAMES // 2:
+        raise AssertionError("fast IPPP stream holds too few P pictures: "
+                             + ftypes)
+    print(f"phase fast inter path: {len(fefs)} frames {W}x{H} (fast "
+          f"zerolatency QP 30, SAO tier 3) in {fsecs:.3f} s = "
+          f"{fast_inter_fps:.3f} fps on {card}; stream {len(fstream)} bytes "
+          f"md5 {hashlib.md5(fstream).hexdigest()}; luma PSNR {fpsnr:.3f} "
+          f"dB; slice types {ftypes}; launches {fcounts}", flush=True)
+
+    # ---- phase 11: the card decode of that leg (sign hiding inferred in
+    # the parse), timed with the launch counts reset just before
+    fenc_md5 = md5s(e.recon for e in frec)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    fdec = HevcDecoder()
+    fdecoded = fdec.decode_all(fstream)
+    torch.cuda.synchronize()
+    fdsecs = time.perf_counter() - t0
+    fdcounts = dict(_build.launches)
+    fast_inter_decode_fps = len(fdecoded) / fdsecs
+    if fdec.fast_pictures != INTER_FRAMES or len(fdecoded) != INTER_FRAMES:
+        raise AssertionError(f"fast P decode: {fdec.fast_pictures} of "
+                             f"{len(fdecoded)} pictures took the fast path")
+    if md5s(fdecoded) != fenc_md5:
+        raise AssertionError("fast P decode: frames differ from the "
+                             "encoder's reconstruction")
+    check_counts(["inter_mc", "inter_recon", "deblock_edges", "sao_apply"],
+                 fdcounts, "fast P decode path")
+    ref4 = md5s(HevcDecoder(reference=True).decode_all(
+        b"".join(e.data for e in fefs[:4])))
+    if ref4 != fenc_md5[:4]:
+        raise AssertionError("fast P decode: reference=True differs on the "
+                             "first 4 pictures")
+    print(f"phase fast inter decode: {len(fdecoded)} frames {W}x{H} in "
+          f"{fdsecs:.3f} s = {fast_inter_decode_fps:.3f} fps on {card}; all "
+          f"{fdec.fast_pictures} through the fast paths, md5 equal to the "
+          f"encoder's recon, first 4 equal with reference=True; launches "
+          f"{fdcounts}", flush=True)
+
+    # ---- phase 12: the fast all-intra encode (effort 1, RDOQ and sign
+    # hiding, SAO tier 3, tiles 8x6), one 16-frame batch timed after a
+    # warm-up with the launch counts reset just before, against its
+    # plain-version encode, and its card decode
+    fi = dict(preset="fast")
+    encode(yuv[:16], **fi)                       # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    iefs_f = encode(yuv[:16], **fi)
+    torch.cuda.synchronize()
+    fisecs = time.perf_counter() - t0
+    for key in ("decide_effort1", "intra_scan_rdoq_sbh", "deblock",
+                "sao_stats", "sao_apply"):
+        check_counts(rows[key]["counters"], _build.launches,
+                     "fast all-intra path")
+    fistream = b"".join(e.data for e in iefs_f)
+    if b"".join(e.data for e in encode(yuv[:16], reference=True,
+                                       **fi)) != fistream:
+        raise AssertionError("16-frame fast all-intra stream: kernels and "
+                             "plain versions differ")
+    fidec = HevcDecoder()
+    if md5s(fidec.decode_all(fistream)) != md5s(e.recon for e in iefs_f) \
+            or fidec.fast_pictures != 16:
+        raise AssertionError("fast all-intra decode: frames differ from the "
+                             "encoder's reconstruction or left the fast path")
+    fast_intra_fps = 16 / fisecs
+    print(f"phase fast all-intra: 16 frames {W}x{H} (fast QP 27 tiles 8x6, "
+          f"SAO tier 3) in {fisecs:.3f} s = {fast_intra_fps:.3f} fps on "
+          f"{card} (one batch, after a warm-up); stream "
+          f"{len(fistream)} bytes == plain versions'; card decode all fast, "
+          "md5 equal to the encoder's recon", flush=True)
+
+    # ---- phase 13: app_encoder with the default -rdoq (1) at the fast
+    # preset, all-intra, and app_decoder on its stream
+    work.mkdir(parents=True)
+    try:
+        (work / "in.yuv").write_bytes(b"".join(f.tobytes() for f in yuv[:4]))
+        argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
+                "-frms", "4", "-b", str(work / "fast.265"), "-preset",
+                "fast", "-qp", "27", "-iper", "1", "-md5", "1"]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = app_encoder.main(argv)
+        check_counts(rows["decide_effort1"]["counters"] + ["intra_level_k2"],
+                     _build.launches, "app_encoder (fast)")
+        ccfg = app_encoder.cfg_from_args(
+            app_encoder.build_parser().parse_args(argv))
+        enc = HevcEncoder(ccfg)
+        if not (enc.cfg.rdoq and enc.pps.sign_data_hiding_enabled):
+            raise AssertionError("app_encoder -preset fast: RDOQ or sign "
+                                 "hiding off")
+        cefs = []
+        for fr in yuv[:4]:
+            cefs += enc.encode_frame(fr)
+        cefs += enc.flush()
+        want = b"".join(e.data for e in cefs)
+        if rc != 0 or (work / "fast.265").read_bytes() != want:
+            raise AssertionError("app_encoder -preset fast: bytes differ "
+                                 "from HevcEncoder's")
+        want_md5 = [",".join(m) for m in md5s(e.recon for e in cefs)]
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = app_decoder.main(["-b", str(work / "fast.265"), "-md5", "1"])
+        dec_lines = [ln.split()[3] for ln in out.getvalue().splitlines()
+                     if ln.startswith("POC ")]
+        if rc != 0 or dec_lines != want_md5:
+            raise AssertionError("app_decoder -md5 1 (fast): lines differ "
+                                 "from the encoder's md5s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase CLI fast: app_encoder -preset fast -iper 1 (default -rdoq)"
+          f" 4 frames ({len(want)} bytes) == HevcEncoder, app_decoder -md5 1"
+          " == encoder md5s", flush=True)
+
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
-                "intra_recon") + INTER_ROWS + ("inter_recon",):
+                "intra_recon") + INTER_ROWS + ("inter_recon",) + FAST_ROWS:
         r = rows[key]
         r.pop("counters")
         r.pop("required", None)
@@ -1231,7 +1650,10 @@ def main() -> int:
     print(json.dumps({"kernels": table, "main_path_fps": fps,
                       "decode_fps": decode_fps,
                       "inter_path_fps": inter_fps,
-                      "inter_decode_fps": inter_decode_fps}))
+                      "inter_decode_fps": inter_decode_fps,
+                      "fast_inter_fps": fast_inter_fps,
+                      "fast_inter_decode_fps": fast_inter_decode_fps,
+                      "fast_intra_fps": fast_intra_fps}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

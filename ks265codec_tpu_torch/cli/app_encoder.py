@@ -10,8 +10,9 @@ A copy of ks265codec_tpu/cli/app_encoder.py on the port's HevcEncoder,
 with one addition: `-device` (default: the CUDA card; `-device cpu` runs
 the plain PyTorch versions on the CPU). Configurations the port does not
 cover yet raise NotImplementedError naming what is missing (the flag
-defaults select RDOQ and B pictures: pass `-rdoq 0 -iper 1` for
-all-intra or `-rdoq 0 -latency zerolatency -iper 0` for low-delay P).
+defaults select B pictures: pass `-iper 1` for all-intra at any preset,
+or `-latency zerolatency -iper 0` for low-delay P at ultrafast to fast;
+the default `-rdoq 1` runs RDOQ in both).
 """
 
 from __future__ import annotations

@@ -1,15 +1,21 @@
 // K5 — intra mode and split decision of a batch of frames.
 //
 // Replaces ks265codec_tpu/ops/decide.py::decide_frames_jit at effort 0
-// (`_decide_one`, `_size_decision`, `_chroma_and_cost`, `_rough_tu_cost`,
-// `_mpm_lists`, `_source_refs`, `_filter_refs`). Per CU tier (16, then 8
-// and 32 seeded from the 16 tier's winners), with one thread block per CU
-// and the frame on blockIdx.y:
+// and effort 1, without NxN (`_decide_one`, `_size_decision`,
+// `_chroma_and_cost`, `_rough_tu_cost`, `_mpm_lists`, `_source_refs`,
+// `_filter_refs`). Per CU tier (16, then 8 and 32: seeded from the 16
+// tier's winners at effort 0, a full sweep at effort 1), with one thread
+// block per CU and the frame on blockIdx.y:
 //   pass A: source-pixel refs, [1 2 1] filtering, prediction of the
 //           candidate modes, 8x8 Hadamard SATD, the SATD-only winner best0;
-//   pass B: MPM lists from the best0 grid, the argmin of
-//           satd + ls * mode_bits, the winner's rough transform/quant cost
-//           (luma and DM chroma) and the cost map;
+//   pass B: MPM lists from the best0 grid, the mode costs
+//           satd + ls * mode_bits; the rough transform/quant cost of the
+//           best one (effort 0) or of the 3 best, ties to the lower mode,
+//           judged by D + lam * (R + mode_bits) (effort 1); the chroma
+//           mode: DM (effort 0) or the least satd_cb + satd_cr + ls * bits
+//           of planar, 26, 10, DC (34 where equal to DM) and DM (effort
+//           1, SATD 4x4 for 4x4 chroma); the chroma rough cost and the
+//           cost map;
 // then one block per frame computes the split maps and the frame cost.
 //
 // The costs are float32 and steer every decision, so they reproduce the
@@ -130,8 +136,12 @@ struct PassB {
   int coef[KS_MAX_N * KS_MAX_N];
   float sq[KS_MAX_N * KS_MAX_N];
   float bits[KS_MAX_N * KS_MAX_N];
-  float D, R, mode_bits;
-  int best;
+  float D, R, mode_bits, cmode_bits;
+  int best, cmode, ncand;
+  int cand[3];
+  float cbits[3], cD[3], cR[3];
+  int ccand[5];
+  int csatd[2][5][4];             // plane, candidate, 8x8 or 4x4 sub-block
 };
 
 // Residual of plane block (bx, by) of size n against the prediction of
@@ -175,14 +185,63 @@ __device__ void rough_cost(const int* tab, const float* btab, int n, int qp,
   __syncthreads();
 }
 
+// 4x4 Hadamard SATD of d (= src - pred), HM normalisation (sum + 1) >> 1.
+static __device__ int satd4(int* d) {
+  for (int r = 0; r < 4; r++)
+    for (int h = 1; h < 4; h <<= 1)
+      for (int i = 0; i < 4; i += 2 * h)
+        for (int j = i; j < i + h; j++) {
+          const int a = d[4 * r + j], b = d[4 * r + j + h];
+          d[4 * r + j] = a + b;
+          d[4 * r + j + h] = a - b;
+        }
+  int s = 0;
+  for (int c = 0; c < 4; c++) {
+    for (int h = 1; h < 4; h <<= 1)
+      for (int i = 0; i < 4; i += 2 * h)
+        for (int j = i; j < i + h; j++) {
+          const int a = d[4 * j + c], b = d[4 * (j + h) + c];
+          d[4 * j + c] = a + b;
+          d[4 * (j + h) + c] = a - b;
+        }
+    for (int r = 0; r < 4; r++) s += abs(d[4 * r + c]);
+  }
+  return (s + 1) >> 1;
+}
+
+// SATD of the nc x nc chroma block (bx, by) of plane p against each of the
+// 5 chroma candidates' predictions from its source refs (4x4 Hadamard for
+// nc = 4, else 8x8 tiles), per tile into s.csatd[c]. Ends synchronised.
+__device__ void chroma_satds(const int* tab, const uint8_t* p, int h, int w,
+                             int nc, int bx, int by, int c, PassB& s) {
+  source_refs(p, h, w, nc, bx, by, s.ru);
+  const int dc = ks_dc_value(s.ru, nc);
+  const int t = nc < 8 ? 4 : 8, per = nc / t, nsub = per * per;
+  for (int i = threadIdx.x; i < 5 * nsub; i += blockDim.x) {
+    const int k = i / nsub, sb = i % nsub;
+    const int oy = (sb / per) * t, ox = (sb % per) * t;
+    int d[64];
+    for (int q = 0; q < t * t; q++) {
+      const int y = oy + q / t, x = ox + q % t;
+      d[q] = (int)p[(by * nc + y) * w + bx * nc + x] -
+             ks_pred_pixel(tab, s.ccand[k], nc, false, s.ru, s.ru, dc, y, x);
+    }
+    s.csatd[c][k][sb] = t == 4 ? satd4(d) : ks_satd8(d);
+  }
+  __syncthreads();
+}
+
+// kEffort is a template argument so that the effort-0 instantiation
+// carries none of the chroma search's code (registers, local arrays).
+template <int kEffort>
 __global__ void pass_b_kernel(const uint8_t* py, const uint8_t* pcb,
                               const uint8_t* pcr, const int* satd,
                               const int* best0, const int* mode16,
                               const int* qp, const int* qpc,
                               const float* lam, const float* ls,
                               const float* btab, const int* tab,
-                              int* mode_out, float* cost_out, int H, int W,
-                              int n, int seeded) {
+                              int* mode_out, float* cost_out, int* cmode_out,
+                              int H, int W, int n, int seeded) {
   __shared__ PassB s;
   const int f = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   const int nbx = W / n, bx = b % nbx, by = b / nbx;
@@ -207,40 +266,100 @@ __global__ void pass_b_kernel(const uint8_t* py, const uint8_t* pcb,
                              bx, by, W / 16)
                : 0;
     const int* st = satd + ((size_t)f * nb + b) * 35;
-    int best = -1;
-    float bj = 0.f, bbits = 0.f;
+    float j[35], mb[35];
     for (int m = 0; m < 35; m++) {
-      if (!is_candidate(m, par, seeded)) continue;
-      const float mb = m == m0 ? 2.f : ((m == m1 || m == m2) ? 3.f : 6.f);
-      const float j = __fmaf_rn(ls[f], mb, (float)st[m]);
-      if (best < 0 || j < bj) {
-        best = m;
-        bj = j;
-        bbits = mb;
-      }
+      mb[m] = m == m0 ? 2.f : ((m == m1 || m == m2) ? 3.f : 6.f);
+      j[m] = __fmaf_rn(ls[f], mb[m], (float)st[m]);
     }
-    s.best = best;
-    s.mode_bits = bbits;
-    s.D = 0.f;
-    s.R = 0.f;
+    // the rough-RD candidates: the K best modes in order, ties to the
+    // lower mode (the reference backend's top-k)
+    const int K = kEffort ? 3 : 1;
+    unsigned long long taken = 0;        // 35 modes
+    for (int k = 0; k < K; k++) {
+      int best = -1;
+      for (int m = 0; m < 35; m++) {
+        if (!is_candidate(m, par, seeded) || ((taken >> m) & 1ull)) continue;
+        if (best < 0 || j[m] < j[best]) best = m;
+      }
+      taken |= 1ull << best;
+      s.cand[k] = best;
+      s.cbits[k] = mb[best];
+    }
+    s.ncand = K;
   }
   __syncthreads();
-  const int best = s.best;
-  source_residual(tab, py + (size_t)f * H * W, H, W, n, bx, by, best, true,
-                  s);
-  rough_cost(tab, btab, n, qp[f], s);
+  const uint8_t* ply = py + (size_t)f * H * W;
+  for (int k = 0; k < s.ncand; k++) {
+    if (threadIdx.x == 0) s.D = s.R = 0.f;
+    source_residual(tab, ply, H, W, n, bx, by, s.cand[k], true, s);
+    rough_cost(tab, btab, n, qp[f], s);
+    if (threadIdx.x == 0) {
+      s.cD[k] = s.D;
+      s.cR[k] = s.R;
+    }
+  }
   const int Hc = H / 2, Wc = W / 2, nc = n / 2;
-  const uint8_t* cps[2] = {pcb, pcr};
+  const uint8_t* cps[2] = {pcb + (size_t)f * Hc * Wc,
+                           pcr + (size_t)f * Hc * Wc};
+  if (threadIdx.x == 0) {
+    int ki = 0;
+    float bj = 0.f;
+    for (int k = 0; k < s.ncand; k++) {
+      const float jk = __fmaf_rn(lam[f], s.cR[k] + s.cbits[k], s.cD[k]);
+      if (k == 0 || jk < bj) {
+        ki = k;
+        bj = jk;
+      }
+    }
+    s.best = s.cand[ki];
+    s.mode_bits = s.cbits[ki];
+    s.D = s.cD[ki];
+    s.R = s.cR[ki];
+    const int fixed[4] = {0, 26, 10, 1};
+    for (int k = 0; k < 4; k++)
+      s.ccand[k] = fixed[k] == s.best ? 34 : fixed[k];
+    s.ccand[4] = s.best;
+    s.cmode = s.best;
+    s.cmode_bits = 1.f;
+  }
+  __syncthreads();
+  if (kEffort) {
+    for (int c = 0; c < 2; c++)
+      chroma_satds(tab, cps[c], Hc, Wc, nc, bx, by, c, s);
+    if (threadIdx.x == 0) {
+      const int nsub = nc < 8 ? 1 : (nc / 8) * (nc / 8);
+      float bj = 0.f;
+      for (int k = 0; k < 5; k++) {
+        int cb = 0, cr = 0;
+        for (int sb = 0; sb < nsub; sb++) {
+          cb += s.csatd[0][k][sb];
+          cr += s.csatd[1][k][sb];
+        }
+        const float bits = k < 4 ? 7.f : 1.f;
+        const float cj =
+            __fmaf_rn(ls[f], bits, (0.f + (float)cb) + (float)cr);
+        if (k == 0 || cj < bj) {
+          bj = cj;
+          s.cmode = s.ccand[k];
+          s.cmode_bits = bits;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  const int cmode = s.cmode;
   for (int c = 0; c < 2; c++) {
-    source_residual(tab, cps[c] + (size_t)f * Hc * Wc, Hc, Wc, nc, bx, by,
-                    best, false, s);
+    source_residual(tab, cps[c], Hc, Wc, nc, bx, by, cmode, false, s);
     rough_cost(tab, btab, nc, qpc[f], s);
   }
   if (threadIdx.x == 0) {
-    // header bits + the DM chroma flag bit, folded as the reference does
-    const float hdr = n == 8 ? 8.f : (n == 16 ? 6.f : 5.f);
-    const float rtot = (s.R + s.mode_bits) + hdr;
-    mode_out[(size_t)f * nb + b] = best;
+    // effort 0: the DM bit folded into the header bits, as the reference
+    // does; effort 1: ((R + mode bits) + chroma bits) + header bits
+    const float hdr = n == 8 ? 7.f : (n == 16 ? 5.f : 4.f);
+    const float rtot = kEffort ? ((s.R + s.mode_bits) + s.cmode_bits) + hdr
+                               : (s.R + s.mode_bits) + (1.f + hdr);
+    mode_out[(size_t)f * nb + b] = s.best;
+    cmode_out[(size_t)f * nb + b] = cmode;
     cost_out[(size_t)f * nb + b] = __fmaf_rn(lam[f], rtot, s.D);
   }
 }
@@ -276,16 +395,36 @@ __global__ void split_kernel(const float* cost8, const float* cost16,
     mn[t] = fminf(c16sum, c32[t]);
   }
   __syncthreads();
+  __shared__ float g[1024];
   if (threadIdx.x == 0) {
+    // with a side above 32, first the reference backend's tree rewrite:
+    // windows of min(side, 32), padded evenly on both sides, each summed
+    // in row-major order from 0; else the map itself
+    const bool split = h32 > 32 || w32 > 32;
+    const int wh = split && h32 > 32 ? 32 : (split ? h32 : 1);
+    const int ww = split && w32 > 32 ? 32 : (split ? w32 : 1);
+    const int ph = (wh - h32 % wh) % wh, pw = (ww - w32 % ww) % ww;
+    const int gh = (h32 + ph) / wh, gw = (w32 + pw) / ww;
+    for (int wy = 0; wy < gh; wy++)
+      for (int wx = 0; wx < gw; wx++) {
+        float acc = 0.f;
+        for (int i = 0; i < wh; i++)
+          for (int j = 0; j < ww; j++) {
+            const int r = wy * wh + i - ph / 2, c = wx * ww + j - pw / 2;
+            if (r >= 0 && r < h32 && c >= 0 && c < w32)
+              acc = acc + mn[r * w32 + c];
+          }
+        g[wy * gw + wx] = acc;
+      }
     // rows summed in order, then the row sums by halving (zero padded)
-    float rows[256];
+    float rows[32];
     int p2 = 1;
-    while (p2 < h32) p2 <<= 1;
+    while (p2 < gh) p2 <<= 1;
     for (int r = 0; r < p2; r++) {
       float acc = 0.f;
-      if (r < h32) {
-        acc = mn[r * w32];
-        for (int c = 1; c < w32; c++) acc = acc + mn[r * w32 + c];
+      if (r < gh) {
+        acc = g[r * gw];
+        for (int c = 1; c < gw; c++) acc = acc + g[r * gw + c];
       }
       rows[r] = acc;
     }
@@ -315,16 +454,18 @@ extern "C" int ks_decide_pass_b(const void* py, const void* pcb,
                                 const void* qp, const void* qpc,
                                 const void* lam, const void* ls,
                                 const void* btab, const void* tab,
-                                void* mode_out, void* cost_out, int F, int H,
-                                int W, int n, int seeded, void* stream) {
+                                void* mode_out, void* cost_out,
+                                void* cmode_out, int F, int H, int W, int n,
+                                int seeded, int effort, void* stream) {
   const int nb = (H / n) * (W / n);
   if (F <= 0 || nb <= 0) return 0;
-  pass_b_kernel<<<dim3(nb, F), 256, 0, (cudaStream_t)stream>>>(
+  auto kernel = effort ? pass_b_kernel<1> : pass_b_kernel<0>;
+  kernel<<<dim3(nb, F), 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)py, (const uint8_t*)pcb, (const uint8_t*)pcr,
       (const int*)satd, (const int*)best0, (const int*)mode16,
       (const int*)qp, (const int*)qpc, (const float*)lam, (const float*)ls,
       (const float*)btab, (const int*)tab, (int*)mode_out, (float*)cost_out,
-      H, W, n, seeded);
+      (int*)cmode_out, H, W, n, seeded);
   return (int)cudaGetLastError();
 }
 
@@ -333,7 +474,8 @@ extern "C" int ks_decide_split(const void* cost8, const void* cost16,
                                void* split32, void* cplx, void* mins, int F,
                                int h8, int w8, void* stream) {
   if (F <= 0) return 0;
-  if (h8 / 4 > 256) return (int)cudaErrorInvalidValue;   // rows[] size
+  // one level of windows (g[] and rows[] sizes)
+  if (h8 / 4 > 1024 || w8 / 4 > 1024) return (int)cudaErrorInvalidValue;
   split_kernel<<<F, 256, 0, (cudaStream_t)stream>>>(
       (const float*)cost8, (const float*)cost16, (const float*)cost32,
       (uint8_t*)split16, (uint8_t*)split32, (float*)cplx, (float*)mins, h8,

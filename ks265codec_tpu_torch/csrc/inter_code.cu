@@ -10,8 +10,11 @@
 //                     cells) from the cell's motion (mc.cuh);
 //   ks_inter_tu_class one thread block per TU of a size class: residual
 //                     against the prediction, forward transform, inter
-//                     deadzone quantisation, dequantisation and inverse
-//                     transform in shared memory; one thread then sums
+//                     deadzone quantisation and the signs through K2's
+//                     functions of rdoq.cuh (with sign hiding, on the
+//                     diagonal scan, where the PPS enables it),
+//                     dequantisation and inverse transform in shared
+//                     memory; one thread then sums
 //                     d_skip, d_coded (ks_block_sum) and the level bits
 //                     fma(3.1, count, 2 * sum log2) (ks_lane_sum) in the
 //                     reference backend's order;
@@ -26,6 +29,7 @@
 // and the MC taps (64 a luma sample) against a few MB of planes:
 // operations bound it.
 #include "mc.cuh"
+#include "rdoq.cuh"
 
 namespace {
 
@@ -72,8 +76,8 @@ __global__ void tu_class_kernel(const uint8_t* sy, const uint8_t* scb,
                                 const int* plane, const int* valid,
                                 int* lev_out, int* rr_out, float* sums,
                                 const int* tab, const float* log2tab,
-                                int stride, int n, int is_luma, int H,
-                                int W) {
+                                const int* rank, int stride, int n,
+                                int is_luma, int sbh, int H, int W) {
   __shared__ TuScratch s;
   const int k = blockIdx.x;
   if (!valid[k]) {
@@ -95,11 +99,16 @@ __global__ void tu_class_kernel(const uint8_t* sy, const uint8_t* scb,
   }
   __syncthreads();
   ks_fwd_dct(tab, n, s.res, s.tmp, s.coef);
+  // signed levels into s.rr (free until the inverse transform), with sign
+  // hiding on the diagonal scan where sbh is set
+  ks_levels_abs(tab, s.coef, s.rr, nullptr, n, q, KS_INTER);
+  __syncthreads();
+  ks_group_pass(s.rr, s.coef, nullptr, n, KS_INTER | (sbh ? KS_SBH : 0),
+                rank);
+  __syncthreads();
   int cnt = 0;
   for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
-    const int c = s.coef[p];
-    int l = ks_quant_abs_inter(tab, abs(c), q, log2);
-    if (c < 0) l = -l;
+    const int l = s.rr[p];
     lev[p] = l;
     s.f2[p] = l != 0 ? log2tab[abs(l)] : 0.f;
     cnt += l != 0;
@@ -209,15 +218,17 @@ extern "C" int ks_inter_tu_class(
     const void* sy, const void* scb, const void* scr, const void* py,
     const void* pcb, const void* pcr, const void* xs, const void* ys,
     const void* qp, const void* plane, const void* valid, void* lev,
-    void* rr, void* sums, const void* tab, const void* log2tab, int K,
-    int stride, int n, int is_luma, int H, int W, void* stream) {
+    void* rr, void* sums, const void* tab, const void* log2tab,
+    const void* rank, int K, int stride, int n, int is_luma, int sbh, int H,
+    int W, void* stream) {
   if (K <= 0) return 0;
   tu_class_kernel<<<K, 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)sy, (const uint8_t*)scb, (const uint8_t*)scr,
       (const uint8_t*)py, (const uint8_t*)pcb, (const uint8_t*)pcr,
       (const int*)xs, (const int*)ys, (const int*)qp, (const int*)plane,
       (const int*)valid, (int*)lev, (int*)rr, (float*)sums, (const int*)tab,
-      (const float*)log2tab, stride, n, is_luma, H, W);
+      (const float*)log2tab, (const int*)rank, stride, n, is_luma, sbh, H,
+      W);
   return (int)cudaGetLastError();
 }
 

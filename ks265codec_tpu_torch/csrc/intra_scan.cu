@@ -7,9 +7,10 @@
 // builds the reference samples from the reconstruction planes (with
 // availability substitution, [1 2 1] filtering and 32x32 strong
 // smoothing), predicts the CU's mode, transforms and quantises the
-// residual, dequantises and inverse-transforms it and writes the
-// reconstruction and the levels; then the same for the two chroma blocks.
-// The frame is blockIdx.y.
+// residual (deadzone rounding, or with the flags K2's RDOQ and sign hiding
+// of rdoq.cuh, with the mode's 4x4 scan), dequantises and
+// inverse-transforms it and writes the reconstruction and the levels;
+// then the same for the two chroma blocks. The frame is blockIdx.y.
 //
 // K11 replaces ks265codec_tpu/ops/wavefront.py::_recon_intra_frame_core
 // (`_recon_class`): the decoder's twin, which reads each block's levels
@@ -24,7 +25,7 @@
 // (matrix products from global tables, one substitution pass in one
 // thread); capturing the level launches in a CUDA graph or a persistent
 // kernel is later work.
-#include "common.cuh"
+#include "rdoq.cuh"
 
 namespace {
 
@@ -135,15 +136,22 @@ __device__ void reconstruct_block(const int* tab, uint8_t* rec, int w,
 }
 
 // One n x n block of one plane, in place. K6 (kRecon false): residual of
-// src against the prediction, forward transform and quantisation; the
-// levels go to lev. K11 (kRecon true): the levels are read from lev and
-// src is unused. Both then dequantise, inverse-transform and reconstruct.
-template <bool kRecon>
-__device__ void run_block(const int* tab, const uint8_t* src, uint8_t* rec,
-                          int16_t* lev, int w, int h, int x0, int y0, int n,
-                          int expand, bool luma, int mode, int qp,
-                          unsigned al, unsigned ac, unsigned at, bool strong,
+// src against the prediction, forward transform and quantisation through
+// K2's functions (deadzone rounding, or RDOQ, and sign hiding as `flags`
+// select). Without K2's tools (kK2 false) each thread signs its own
+// levels and the group pass with its two synchronisations is skipped:
+// run at flags 0, the group pass made the ultrafast scan 6-8% slower on
+// an H100. The levels go to lev. K11 (kRecon true): the levels are read
+// from lev and src is unused. Both then dequantise, inverse-transform
+// and reconstruct.
+template <bool kRecon, bool kK2>
+__device__ void run_block(const int* tab, const int* rank,
+                          const uint8_t* src, uint8_t* rec, int16_t* lev,
+                          int w, int h, int x0, int y0, int n, int expand,
+                          int c_idx, int mode, int qp, unsigned al,
+                          unsigned ac, unsigned at, bool strong, int flags,
                           Scratch& s) {
+  const bool luma = c_idx == 0;
   const int log2 = ks_log2(n);
   predict_block(tab, rec, w, h, x0, y0, n, expand, luma, mode, al, ac, at,
                 strong, s);
@@ -158,11 +166,19 @@ __device__ void run_block(const int* tab, const uint8_t* src, uint8_t* rec,
       res[p] = (int)src[(y0 + p / n) * w + x0 + p % n] - s.pred[p];
     __syncthreads();
     ks_fwd_dct(tab, n, res, s.buf1, coef);
-    // quantise, store the level, dequantise in place
+    // K2: levels into buf0 (RDOQ's f into buf1), then per 4x4 group the
+    // decimation, the signs and sign hiding (or the signs alone, each
+    // thread on its own coefficients); store and dequantise in place
+    float* f = reinterpret_cast<float*>(s.buf1);
+    ks_levels_abs(tab, coef, s.buf0, f, n, qp, flags);
+    if (kK2) {
+      __syncthreads();
+      ks_group_pass(s.buf0, coef, f, n, flags,
+                    rank + 16 * ks_scan_idx(mode, log2, c_idx));
+      __syncthreads();
+    }
     for (int p = threadIdx.x; p < n * n; p += blockDim.x) {
-      const int c = coef[p];
-      int l = ks_quant_abs(tab, c < 0 ? -c : c, qp, log2);
-      if (c < 0) l = -l;
+      const int l = kK2 || coef[p] >= 0 ? s.buf0[p] : -s.buf0[p];
       lev[(y0 + p / n) * w + x0 + p % n] = (int16_t)l;
       coef[p] = ks_dequant(tab, l, qp, log2);
     }
@@ -171,11 +187,12 @@ __device__ void run_block(const int* tab, const uint8_t* src, uint8_t* rec,
   reconstruct_block(tab, rec, w, x0, y0, n, s);
 }
 
-template <bool kRecon>
+template <bool kRecon, bool kK2>
 __global__ void intra_level_kernel(
     const uint8_t* sy, const uint8_t* scb, const uint8_t* scr, uint8_t* ry,
     uint8_t* rcb, uint8_t* rcr, int16_t* ly, int16_t* lcb, int16_t* lcr,
-    const int* recs, const int* tab, int kmax, int H, int W, int strong) {
+    const int* recs, const int* tab, const int* rank, int kmax, int H,
+    int W, int strong, int flags) {
   __shared__ Scratch s;
   const int f = blockIdx.y;
   const int* r = recs + ((size_t)f * kmax + blockIdx.x) * RFIELDS;
@@ -184,32 +201,37 @@ __global__ void intra_level_kernel(
   const int n = r[RSIZE];
   const unsigned al = (unsigned)r[RAL], ac = (unsigned)r[RAC],
                  at = (unsigned)r[RAT];
-  run_block<kRecon>(tab, kRecon ? nullptr : sy + oy, ry + oy, ly + oy, W, H,
-                    r[RX], r[RY], n, 1, true, r[RMODE], r[RQP], al, ac, at,
-                    strong != 0, s);
-  run_block<kRecon>(tab, kRecon ? nullptr : scb + oc, rcb + oc, lcb + oc,
-                    W / 2, H / 2, r[RX] / 2, r[RY] / 2, n / 2, 2, false,
-                    r[RCMODE], r[RQPCB], al, ac, at, false, s);
-  run_block<kRecon>(tab, kRecon ? nullptr : scr + oc, rcr + oc, lcr + oc,
-                    W / 2, H / 2, r[RX] / 2, r[RY] / 2, n / 2, 2, false,
-                    r[RCMODE], r[RQPCR], al, ac, at, false, s);
+  run_block<kRecon, kK2>(tab, rank, kRecon ? nullptr : sy + oy, ry + oy,
+                         ly + oy, W, H, r[RX], r[RY], n, 1, 0, r[RMODE],
+                         r[RQP], al, ac, at, strong != 0, flags, s);
+  run_block<kRecon, kK2>(tab, rank, kRecon ? nullptr : scb + oc, rcb + oc,
+                         lcb + oc, W / 2, H / 2, r[RX] / 2, r[RY] / 2, n / 2,
+                         2, 1, r[RCMODE], r[RQPCB], al, ac, at, false, flags,
+                         s);
+  run_block<kRecon, kK2>(tab, rank, kRecon ? nullptr : scr + oc, rcr + oc,
+                         lcr + oc, W / 2, H / 2, r[RX] / 2, r[RY] / 2, n / 2,
+                         2, 2, r[RCMODE], r[RQPCR], al, ac, at, false, flags,
+                         s);
 }
 
 }  // namespace
 
+// K6: sources -> levels and reconstruction, one level of the schedule;
+// flags: KS_RDOQ and KS_SBH of rdoq.cuh (rank: the 4x4 scan-rank table).
 extern "C" int ks_intra_level(const void* sy, const void* scb,
                               const void* scr, void* ry, void* rcb,
                               void* rcr, void* ly, void* lcb, void* lcr,
-                              const void* recs, const void* tab, int kmax,
-                              int F, int H, int W, int strong,
-                              void* stream) {
+                              const void* recs, const void* tab,
+                              const void* rank, int kmax, int F, int H,
+                              int W, int strong, int flags, void* stream) {
   if (kmax <= 0 || F <= 0) return 0;
-  intra_level_kernel<false><<<dim3(kmax, F), 256, 0,
-                               (cudaStream_t)stream>>>(
+  auto kernel = flags ? intra_level_kernel<false, true>
+                      : intra_level_kernel<false, false>;
+  kernel<<<dim3(kmax, F), 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)sy, (const uint8_t*)scb, (const uint8_t*)scr,
       (uint8_t*)ry, (uint8_t*)rcb, (uint8_t*)rcr, (int16_t*)ly,
-      (int16_t*)lcb, (int16_t*)lcr, (const int*)recs, (const int*)tab, kmax,
-      H, W, strong);
+      (int16_t*)lcb, (int16_t*)lcr, (const int*)recs, (const int*)tab,
+      (const int*)rank, kmax, H, W, strong, flags);
   return (int)cudaGetLastError();
 }
 
@@ -220,11 +242,11 @@ extern "C" int ks_intra_recon_level(const void* ly, const void* lcb,
                                     const void* tab, int kmax, int F, int H,
                                     int W, int strong, void* stream) {
   if (kmax <= 0 || F <= 0) return 0;
-  intra_level_kernel<true><<<dim3(kmax, F), 256, 0,
-                              (cudaStream_t)stream>>>(
+  intra_level_kernel<true, false><<<dim3(kmax, F), 256, 0,
+                                     (cudaStream_t)stream>>>(
       nullptr, nullptr, nullptr, (uint8_t*)ry, (uint8_t*)rcb, (uint8_t*)rcr,
       (int16_t*)ly, (int16_t*)lcb, (int16_t*)lcr, (const int*)recs,
-      (const int*)tab, kmax, H, W, strong);
+      (const int*)tab, nullptr, kmax, H, W, strong, 0);
   return (int)cudaGetLastError();
 }
 

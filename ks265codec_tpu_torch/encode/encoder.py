@@ -4,9 +4,10 @@ ks265codec_tpu_torch.
 Same configuration (`EncoderConfig`), the same `encode_frame` / `flush`
 contract and the same `EncodedFrame` as ks265codec_tpu/encode/encoder.py,
 for the configurations the port covers (`unsupported` lists the rest):
-fixed QP, the fast presets' tools, and either all-intra
-(`intra_period=1`, SAO at any tier) or low-delay P (`bframes == 0`, one
-reference, SAO at any tier).
+fixed QP, both decision tiers (effort 0 and 1), RDOQ and sign-bit hiding,
+and either all-intra (`intra_period=1`, SAO at any tier: every preset from
+ultrafast to placebo) or low-delay P (`bframes == 0`, one reference, SAO
+at any tier: ultrafast to fast).
 
 Low-delay P follows the reference's `_drain` IDR and low-delay branches
 and the P branch of `_encode_picture`: every frame is pushed to the
@@ -23,8 +24,10 @@ reference does not run it there).
 All-intra follows the reference's batched all-intra path (`_drain`'s
 all-intra branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the
 IDR branch of `_encode_picture`):
-  1. ops/decide.py      decision maps for the batch (K5),
-  2. ops/wavefront.py   the level-scheduled intra coding scan (K6),
+  1. ops/decide.py      decision maps for the batch (K5, the preset's
+                        effort),
+  2. ops/wavefront.py   the level-scheduled intra coding scan (K6, with
+                        RDOQ and sign hiding, K2, where the preset has them),
   3. ops/deblock.py     deblocking of the reconstruction (K7),
   4. ops/saostats.py    per-CTB SAO statistics against the sources (K8),
   5. encode/sao.py      the SAO decision on the host (exact, float64),
@@ -106,11 +109,14 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
         (bool(cfg.aq_mode), "adaptive quantisation (aq_mode)"),
         (bool(cfg.cutree), "CU-tree"),
         (bool(cfg.pcm), "PCM"),
+        # an inter stream's IDR takes the reference's host path for these
+        (inter and bool(cfg.intra_nxn), "NxN intra partitions in inter "
+         "streams"),
+        (inter and cfg.intra_tu_depth > 0, "the intra TU split in inter "
+         "streams"),
         (cfg.slices > 1, "multiple slices"),
         (not cfg.fpp, "the per-frame path (fpp=False)"),
-        (bool(cfg.rdoq), "RDOQ"),
-        (bool(cfg.sign_bit_hiding), "sign-bit hiding"),
-        (cfg.decide_effort != 0, "the full decision tier (decide_effort 1)"),
+        (cfg.decide_effort not in (0, 1), "decide_effort above 1"),
         (bool(cfg.ssim), "SSIM reporting"),
     ]
     return [what for bad, what in checks if bad]
@@ -237,7 +243,7 @@ class HevcEncoder:
         p = PPS()
         p.pps_id = 0
         p.sps_id = 0
-        p.sign_data_hiding_enabled = 0
+        p.sign_data_hiding_enabled = 1 if cfg.sign_bit_hiding else 0
         p.cabac_init_present = 0
         p.num_ref_idx_l0_default = 1
         p.num_ref_idx_l1_default = 1
@@ -521,6 +527,7 @@ class HevcEncoder:
                                 ("v", ph // 2, pw // 2))]
         with stage("ai.decide"):
             dec = decide_frames(*src, qps, cfg.lambda_scale,
+                                effort=int(cfg.decide_effort),
                                 reference=self.reference)
             maps = {k: dec[k].cpu().numpy() for k in
                     ("split32", "split16", "mode8", "mode16", "mode32",
@@ -540,6 +547,7 @@ class HevcEncoder:
                                      pps.cr_qp_offset, sps)
             recon, levels = code_intra_frames(
                 *src, sched, bool(sps.strong_intra_smoothing),
+                sbh=bool(pps.sign_data_hiding_enabled), rdoq=bool(cfg.rdoq),
                 reference=self.reference)
         with stage("ai.deblock"):
             bs = [intra_bs_maps(it["log2m"]) for it in batch]

@@ -840,7 +840,8 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
             not pps.deblocking_filter_disabled,
             bool(sps.strong_intra_smoothing), reference=enc.reference,
             sao=((enc.sao_tier, int(hdr.slice_qp), sps.ctb_size)
-                 if sps.sao_enabled else None))
+                 if sps.sao_enabled else None),
+            sbh=bool(pps.sign_data_hiding_enabled))
     with stage("inter.code_fetch"):
         coeffs = tuple(c.cpu().numpy() for c in coef_dev)
         sao_arrays = (None if sao_dev is None

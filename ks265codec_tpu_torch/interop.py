@@ -88,3 +88,13 @@ def device_bits_table(device) -> torch.Tensor:
         from .ops.decide import bits_table
         _cache[key] = torch.as_tensor(bits_table(), device=device)
     return _cache[key]
+
+
+def device_rank_table(device) -> torch.Tensor:
+    """The 4x4 scan-rank table of sign hiding (encode/sbh.py::RANK, 3 x 16
+    int32, [scan][y * 4 + x]) on `device` (cached)."""
+    key = ("rank", str(device))
+    if key not in _cache:
+        from .encode.sbh import RANK
+        _cache[key] = torch.as_tensor(RANK.reshape(-1), device=device)
+    return _cache[key]

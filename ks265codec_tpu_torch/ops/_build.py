@@ -34,9 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the CUDA stream; all return a cudaError_t as int.
 _SIGNATURES = {
     "ks_decide_pass_a": [_P] * 5 + [_I] * 5 + [_P],
-    "ks_decide_pass_b": [_P] * 14 + [_I] * 5 + [_P],
+    "ks_decide_pass_b": [_P] * 15 + [_I] * 6 + [_P],
     "ks_decide_split": [_P] * 7 + [_I] * 3 + [_P],
-    "ks_intra_level": [_P] * 11 + [_I] * 5 + [_P],
+    "ks_intra_level": [_P] * 12 + [_I] * 6 + [_P],
     "ks_deblock_edges": [_P] * 6 + [_I] * 10 + [_P],
     "ks_intra_recon_level": [_P] * 8 + [_I] * 5 + [_P],
     "ks_sao_stats": [_P] * 6 + [_I] * 8 + [_P],
@@ -50,12 +50,13 @@ _SIGNATURES = {
     "ks_inter_decide_tier": [_P] * 25 + [_I] * 8 + [_P],
     "ks_inter_cand_sads": [_P] * 7 + [_I] * 7 + [_P],
     "ks_inter_mc": [_P] * 8 + [_I] * 6 + [_P],
-    "ks_inter_tu_class": [_P] * 16 + [_I] * 6 + [_P],
+    "ks_inter_tu_class": [_P] * 17 + [_I] * 7 + [_P],
     "ks_inter_gate": [_P] * 4 + [_I] * 2 + [_P],
     "ks_inter_finish": [_P] * 18 + [_I] * 6 + [_P],
     "ks_inter_bs": [_P] * 9 + [_I] * 3 + [_P],
     "ks_sao_decide": [_P] * 16 + [_I] * 2 + [_F] * 3 + [_P],
     "ks_inter_recon": [_P] * 11 + [_I] * 3 + [_P],
+    "ks_rdoq_sbh": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()

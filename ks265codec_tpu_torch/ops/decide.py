@@ -2,23 +2,36 @@
 prediction, SATD + lambda*bits mode costs, the rough rate-distortion cost
 of each winner and the split maps, for a batch of frames.
 
-Counterpart of ks265codec_tpu/ops/decide.py::decide_frames_jit at the fast
-presets' effort 0: the full 35-mode sweep at the 16 tier, then the 8 and 32
-tiers searching only the candidates seeded from the 16 tier's winners, with
-DM-only chroma. The 13 per-frame maps come back directly as tensors (no
-packed transfer row, no striping).
+Counterpart of ks265codec_tpu/ops/decide.py::decide_frames_jit at both of
+its tiers without NxN:
+  * effort 0 (ultrafast, superfast): the full 35-mode sweep at the 16
+    tier, then the 8 and 32 tiers searching only the candidates seeded
+    from the 16 tier's winners, one rough-RD candidate, DM-only chroma;
+  * effort 1 (veryfast and slower): the full sweep at every tier, the
+    three best modes by `satd + ls * mode_bits` (ties to the lower mode,
+    as the reference backend's top-k) each judged by its rough RD cost
+    `D + lam * (R + mode_bits)` (the first minimum in rank order), and the
+    five chroma candidates (planar, 26, 10, DC, DM; one equal to DM
+    becomes 34) by `satd_cb + satd_cr + ls * bits` (SATD 4x4 below 8x8).
+The 13 per-frame maps come back directly as tensors (no packed transfer
+row, no striping).
 
 The costs are float32 and steer every decision, so both versions here
 reproduce the reference's float32 sequence on its CPU backend exactly:
   * the reference backend contracts `a + s * b` into one fused
     multiply-add where both sit in one fusion: the mode cost
-    `satd + ls * mode_bits` and the final `D + lam * R`; `fma32` below
-    (and `__fmaf_rn` in the kernel) does the same;
+    `satd + ls * mode_bits`, the chroma cost, the candidate cost and the
+    final `D + lam * R`; `fma32` below (and `__fmaf_rn` in the kernel)
+    does the same;
   * its sums over a transform block follow the vectorised order of
     `_block_sum`; sums of 2x2 cost cells are sequential in raster order;
-    the frame total `cplx` follows `_frame_sum`, which is the
-    reference's order for maps of 4 rows of 32-blocks only (its order
-    changes with the shape; cplx feeds rate control, not the stream);
+  * the rate sum of the final cost is (R + mode_bits) + (1 + hdr) at
+    effort 0 (the constant DM bit folded into the header bits) and
+    ((R + mode_bits) + chroma_bits) + hdr at effort 1;
+  * the frame total `cplx` follows `_frame_sum`: for maps of at most 32
+    rows and columns of 32-blocks the order the test shapes match, above
+    that the reference backend's tree rewrite (windows of 32, each summed
+    in row-major order);
   * `3.1 + 2 * log2(level)` is a table (`bits_table`) built from the
     reference backend's float32 log (`_logtab`) and the same contraction.
 The CUDA kernels (csrc/decide.cu) run the same sequence in one thread per
@@ -39,10 +52,14 @@ from . import intra as tintra
 from .transforms import dequantize, forward_transform, quantize
 from ._logtab import ONE_ULP_DOWN, ONE_ULP_UP
 
-# per-size header bits plus the DM chroma flag bit (1.0), as one constant:
-# the reference backend folds `(x + 1.0) + hdr` into `x + (1.0 + hdr)`
-_HDR_PLUS_DM = {8: 8.0, 16: 6.0, 32: 5.0}
+_HDR_BITS = {8: 7.0, 16: 5.0, 32: 4.0}
+# at effort 0 the chroma bits are the DM flag's constant 1.0, which the
+# reference backend folds into the header bits: `(x + 1.0) + hdr` becomes
+# `x + (1.0 + hdr)`
+_HDR_PLUS_DM = {n: 1.0 + h for n, h in _HDR_BITS.items()}
 _BITS_MPM0, _BITS_MPM12, _BITS_REM = 2.0, 3.0, 6.0
+# chroma candidate bits: four explicit modes, then DM
+_BITS_CHROMA, _BITS_DM = 7.0, 1.0
 
 MAP_NAMES = ("split32", "mode16", "mode32", "cplx", "split16", "mode8",
              "cm8", "cm16", "cm32", "cost8", "cost16", "mode4", "nxn8")
@@ -116,9 +133,35 @@ def _sum2x2(m: torch.Tensor) -> torch.Tensor:
         + m[:, 1::2, 1::2]
 
 
+def _window_sum(m: torch.Tensor) -> torch.Tensor:
+    """The reference backend's tree rewrite of a reduction whose reduced
+    dimensions exceed 32: each dimension in windows of min(size, 32),
+    zero-padded evenly on both sides to a multiple of the window, every
+    window summed in row-major order from 0. (F, h, w) -> the (F, h', w')
+    window sums."""
+    F, h, w = m.shape
+    wh, ww = min(h, 32), min(w, 32)
+    ph, pw = -h % wh, -w % ww
+    p = torch.nn.functional.pad(m, (pw // 2, pw - pw // 2,
+                                    ph // 2, ph - ph // 2))
+    H, W = p.shape[1:]
+    win = p.reshape(F, H // wh, wh, W // ww, ww).permute(0, 1, 3, 2, 4) \
+        .reshape(F, H // wh, W // ww, wh * ww)
+    acc = torch.zeros(win.shape[:-1], dtype=m.dtype, device=m.device)
+    for i in range(wh * ww):
+        acc = acc + win[..., i]
+    return acc
+
+
 def _frame_sum(m: torch.Tensor) -> torch.Tensor:
-    """(F, h, w) -> (F,): each row summed sequentially, then the row sums
-    by halving (zero-padded to a power of two)."""
+    """(F, h, w) -> (F,): the frame total in the reference backend's order.
+    With a dimension above 32, the window sums of `_window_sum` first.
+    Then each row summed sequentially, and the row sums by halving
+    (zero-padded to a power of two): the order of the maps of 4 rows the
+    tests hold against the reference (other shapes up to 32 may differ;
+    the total feeds only rate control)."""
+    while max(m.shape[1:]) > 32:
+        m = _window_sum(m)
     acc = m[:, :, 0]
     for c in range(1, m.shape[2]):
         acc = acc + m[:, :, c]
@@ -215,11 +258,20 @@ def _rough_tu_cost(res: torch.Tensor, qp: torch.Tensor, n: int,
     return D, bits
 
 
-def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None):
-    """Mode, DM chroma mode and rough-RD cost maps of one CU size for all
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (F, B, M, ...) at idx (F, B, K) along dim 2 -> (F, B, K, ...)."""
+    idx = idx.reshape(idx.shape + (1,) * (x.dim() - 3))
+    return torch.gather(x, 2, idx.expand(idx.shape[:3] + x.shape[3:]))
+
+
+def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None,
+          effort: int = 0):
+    """Mode, chroma mode and rough-RD cost maps of one CU size for all
     frames. planes (F, h, w), chroma (F, h/2, w/2) int32; qp/qpc (F,)
     int32; lam/ls (F,) float32; seed (F, nby, nbx) parent modes or None
-    (full 35-mode search). Returns (mode, cost) as (F, nby, nbx)."""
+    (full 35-mode search); effort 1 judges the top 3 modes by rough RD and
+    searches the 5 chroma candidates. Returns (mode, cost, chroma mode) as
+    (F, nby, nbx)."""
     F, h, w = planes.shape
     nby, nbx = h // n, w // n
     dev = planes.device
@@ -249,64 +301,103 @@ def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None):
     j = fma32(ls[:, None, None], mbits, costs)
     if in_cand is not None:
         j = torch.where(in_cand, j, inf)
-    best = j.argmin(-1)                                      # (F, B)
-    mode_bits = torch.gather(mbits, 2, best[..., None])[..., 0]
-    pred_b = torch.gather(preds, 2, best[:, :, None, None, None].expand(
-        F, B, 1, n, n))[:, :, 0]
-    qpb = qp[:, None].expand(F, B)
-    D, rbits = _rough_tu_cost(blocks - pred_b, qpb, n, btab)
+    # the rough-RD candidates: the best mode, or the 3 best with ties to
+    # the lower mode; the first minimum of their rough cost in rank order
+    K = 3 if effort else 1
+    cand_idx = torch.sort(j, stable=True).indices[..., :K]      # (F, B, K)
+    pred_k = _gather(preds, cand_idx)                     # (F, B, K, n, n)
+    Dk, rbk = _rough_tu_cost(blocks[:, :, None] - pred_k,
+                             qp[:, None, None].expand(F, B, K), n, btab)
+    mb_k = torch.gather(mbits, 2, cand_idx)
+    ki = fma32(lam[:, None, None], rbk + mb_k, Dk).argmin(-1)[..., None]
+    best = torch.gather(cand_idx, 2, ki)[..., 0]                 # (F, B)
+    mode_bits, D, rbits = (torch.gather(x, 2, ki)[..., 0]
+                           for x in (mb_k, Dk, rbk))
     nc = n // 2
     qpcb = qpc[:, None].expand(F, B)
-    for cp in (cbs, crs):
-        crefs = _source_refs(cp, nc).reshape(-1, 4 * nc + 1)
-        cpred = tintra.predict_mode(crefs, crefs, best.reshape(-1), nc,
+    crefs = [_source_refs(cp, nc).reshape(-1, 4 * nc + 1) for cp in (cbs,
+                                                                     crs)]
+    cblocks = [_blocks(cp, nc) for cp in (cbs, crs)]
+    if effort:
+        # chroma candidates: planar, 26, 10, DC (34 where equal to DM), DM
+        fixed = torch.tensor([0, 26, 10, 1], device=dev)
+        cands = torch.cat([torch.where(fixed == best[..., None], 34, fixed),
+                           best[..., None]], -1)                  # (F, B, 5)
+        cbits = torch.tensor([_BITS_CHROMA] * 4 + [_BITS_DM],
+                             dtype=torch.float32, device=dev)
+        csatd = torch.zeros(cands.shape, dtype=torch.float32, device=dev)
+        for cr_, cb_ in zip(crefs, cblocks):
+            cpreds = tintra.predict_all_modes(cr_, cr_, nc, False).reshape(
+                F, B, 35, nc, nc)
+            sat = tcost.satd(cpreds, cb_[:, :, None], 8).to(torch.float32)
+            csatd = csatd + torch.gather(sat, 2, cands)
+        ci = fma32(ls[:, None, None], cbits, csatd).argmin(-1)[..., None]
+        cmode = torch.gather(cands, 2, ci)[..., 0]
+        cmode_bits = cbits[ci[..., 0]]
+    else:
+        cmode = best
+    for cr_, cb_ in zip(crefs, cblocks):
+        cpred = tintra.predict_mode(cr_, cr_, cmode.reshape(-1), nc,
                                     False).reshape(F, B, nc, nc)
-        Dc, rbc = _rough_tu_cost(_blocks(cp, nc) - cpred, qpcb, nc, btab)
+        Dc, rbc = _rough_tu_cost(cb_ - cpred, qpcb, nc, btab)
         D = D + Dc
         rbits = rbits + rbc
-    rtot = (rbits + mode_bits) + _HDR_PLUS_DM[n]
+    if effort:
+        rtot = ((rbits + mode_bits) + cmode_bits) + _HDR_BITS[n]
+    else:
+        rtot = (rbits + mode_bits) + _HDR_PLUS_DM[n]
     cost = fma32(lam[:, None], rtot, D)
-    return best.reshape(F, nby, nbx).to(torch.int32), cost.reshape(F, nby, nbx)
+    shape = (F, nby, nbx)
+    return (best.reshape(shape).to(torch.int32), cost.reshape(shape),
+            cmode.reshape(shape).to(torch.int32))
 
 
 def decide_frames_plain(planes: torch.Tensor, cbs: torch.Tensor,
                         crs: torch.Tensor, qp: torch.Tensor,
                         qpc: torch.Tensor, lam: torch.Tensor,
-                        ls: torch.Tensor) -> dict:
+                        ls: torch.Tensor, effort: int = 0) -> dict:
     """Plain PyTorch version of the decision pass. planes (F, ph, pw)
     uint8, chroma (F, ph/2, pw/2) uint8, per-frame qp/qpc int32 and
-    lam/ls float32 (`frame_lambdas`). Returns the 13 maps of MAP_NAMES as
-    (F, ...) tensors (mode4 and nxn8 are zero: the fast tier has no NxN)."""
+    lam/ls float32 (`frame_lambdas`), effort 0 or 1. Returns the 13 maps
+    of MAP_NAMES as (F, ...) tensors (mode4 and nxn8 are zero: NxN is not
+    ported)."""
     y, cb, cr = (p.to(torch.int32) for p in (planes, cbs, crs))
     btab = torch.as_tensor(bits_table(), device=planes.device)
-    mode16, cost16 = _tier(y, cb, cr, qp, qpc, lam, ls, 16, btab)
-    seed8 = mode16.repeat_interleave(2, 1).repeat_interleave(2, 2)
-    mode8, cost8 = _tier(y, cb, cr, qp, qpc, lam, ls, 8, btab, seed8)
-    mode32, cost32 = _tier(y, cb, cr, qp, qpc, lam, ls, 32, btab,
-                           mode16[:, ::2, ::2])
-    return _splits(mode8, mode16, mode32, cost8, cost16, cost32)
+    args = (y, cb, cr, qp, qpc, lam, ls)
+    t16 = _tier(*args, 16, btab, effort=effort)
+    if effort:
+        t8 = _tier(*args, 8, btab, effort=1)
+        t32 = _tier(*args, 32, btab, effort=1)
+    else:
+        mode16 = t16[0]
+        seed8 = mode16.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        t8 = _tier(*args, 8, btab, seed8)
+        t32 = _tier(*args, 32, btab, mode16[:, ::2, ::2])
+    return _splits(t8, t16, t32)
 
 
-def _splits(mode8, mode16, mode32, cost8, cost16, cost32) -> dict:
+def _splits(t8, t16, t32) -> dict:
+    """The split maps and the frame total from the (mode, cost, chroma
+    mode) maps of the three tiers."""
+    (mode8, cost8, cm8), (mode16, cost16, cm16), (mode32, cost32, cm32) = \
+        t8, t16, t32
     c8sum = _sum2x2(cost8)
     split16 = c8sum < cost16
     c16sum = _sum2x2(torch.minimum(c8sum, cost16))
     split32 = c16sum < cost32
     cplx = _frame_sum(torch.minimum(c16sum, cost32))
-    return _maps(split32, split16, cplx, mode8, mode16, mode32, cost8,
-                 cost16)
+    return _maps(split32, split16, cplx, t8, t16, t32)
 
 
-def _maps(split32, split16, cplx, mode8, mode16, mode32, cost8,
-          cost16) -> dict:
-    """The 13 maps by name; chroma takes the DM mode and the fast tier has
-    no NxN (mode4 and nxn8 are zero)."""
+def _maps(split32, split16, cplx, t8, t16, t32) -> dict:
+    """The 13 maps by name; NxN is not ported (mode4 and nxn8 are zero)."""
+    (mode8, cost8, cm8), (mode16, cost16, cm16), (mode32, _, cm32) = \
+        t8, t16, t32
     F, h8, w8 = mode8.shape
     dev = mode8.device
     return dict(split32=split32.bool(), mode16=mode16, mode32=mode32,
                 cplx=cplx, split16=split16.bool(), mode8=mode8,
-                cm8=mode8.clone(), cm16=mode16.clone(), cm32=mode32.clone(),
-                cost8=cost8, cost16=cost16,
+                cm8=cm8, cm16=cm16, cm32=cm32, cost8=cost8, cost16=cost16,
                 mode4=torch.zeros((F, 2 * h8, 2 * w8), dtype=torch.int32,
                                   device=dev),
                 nxn8=torch.zeros((F, h8, w8), dtype=torch.bool, device=dev))
@@ -314,23 +405,26 @@ def _maps(split32, split16, cplx, mode8, mode16, mode32, cost8,
 
 def decide_frames(planes: torch.Tensor, cbs: torch.Tensor,
                   crs: torch.Tensor, qps, lam_scale: float = 1.0,
-                  reference: bool = False) -> dict:
-    """The decision pass for a batch of padded frames on their device.
-    CUDA tensors launch the kernels (csrc/decide.cu); CPU tensors, or
-    reference=True, run `decide_frames_plain`."""
+                  effort: int = 0, reference: bool = False) -> dict:
+    """The decision pass for a batch of padded frames on their device, at
+    effort 0 or 1. CUDA tensors launch the kernels (csrc/decide.cu); CPU
+    tensors, or reference=True, run `decide_frames_plain`."""
+    if effort not in (0, 1):
+        raise ValueError(f"decide effort {effort}: 0 or 1")
     qpa, qpca, lam, ls = frame_lambdas(qps, lam_scale)
     dev = planes.device
     args = (torch.as_tensor(qpa, device=dev), torch.as_tensor(qpca, device=dev),
             torch.as_tensor(lam, device=dev), torch.as_tensor(ls, device=dev))
     if dev.type != "cuda" or reference:
-        return decide_frames_plain(planes, cbs, crs, *args)
-    return decide_frames_cuda(planes, cbs, crs, *args)
+        return decide_frames_plain(planes, cbs, crs, *args, effort=effort)
+    return decide_frames_cuda(planes, cbs, crs, *args, effort=effort)
 
 
-def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls) -> dict:
+def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
+                       effort: int = 0) -> dict:
     """The decision pass on the card: `ks_decide_pass_a` and
-    `ks_decide_pass_b` per tier (16, then 8 and 32 seeded from the 16
-    tier), then `ks_decide_split` per frame."""
+    `ks_decide_pass_b` per tier (16, then 8 and 32, seeded from the 16
+    tier at effort 0), then `ks_decide_split` per frame."""
     from ..interop import device_bits_table, device_tables
     F, H, W = planes.shape
     for t, shape in ((planes, (F, H, W)), (cbs, (F, H // 2, W // 2)),
@@ -347,26 +441,28 @@ def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls) -> dict:
     qp, qpc = qp.to(torch.int32).contiguous(), qpc.to(torch.int32).contiguous()
     lam, ls = lam.float().contiguous(), ls.float().contiguous()
     P, st = _build.ptr, _build.stream(dev)
-    modes, costs = {}, {}
+    tiers = {}
     for n in (16, 8, 32):
-        seeded = int(n != 16)
+        seeded = int(n != 16 and not effort)
         nb = (H // n) * (W // n)
         satd = torch.empty((F, nb, 35), dtype=torch.int32, device=dev)
         best0 = torch.empty((F, nb), dtype=torch.int32, device=dev)
-        m16 = P(modes[16]) if seeded else None
+        m16 = P(tiers[16][0]) if seeded else None
         _build.check(lib.ks_decide_pass_a(P(planes), m16, P(satd), P(best0),
                                           P(tab), F, H, W, n, seeded, st),
                      "ks_decide_pass_a")
         _build.count("decide_pass_a")
-        mode = torch.empty((F, H // n, W // n), dtype=torch.int32, device=dev)
+        mode, cmode = (torch.empty((F, H // n, W // n), dtype=torch.int32,
+                                   device=dev) for _ in range(2))
         cost = torch.empty((F, H // n, W // n), dtype=torch.float32,
                            device=dev)
         _build.check(lib.ks_decide_pass_b(
             P(planes), P(cbs), P(crs), P(satd), P(best0), m16, P(qp),
             P(qpc), P(lam), P(ls), P(btab), P(tab), P(mode), P(cost),
-            F, H, W, n, seeded, st), "ks_decide_pass_b")
+            P(cmode), F, H, W, n, seeded, int(effort), st),
+            "ks_decide_pass_b")
         _build.count("decide_pass_b")
-        modes[n], costs[n] = mode, cost
+        tiers[n] = (mode, cost, cmode)
     h8, w8 = H // 8, W // 8
     split16 = torch.empty((F, h8 // 2, w8 // 2), dtype=torch.uint8,
                           device=dev)
@@ -375,10 +471,8 @@ def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls) -> dict:
     cplx = torch.empty((F,), dtype=torch.float32, device=dev)
     mins = torch.empty((F, h8 // 4, w8 // 4), dtype=torch.float32,
                        device=dev)
-    _build.check(lib.ks_decide_split(P(costs[8]), P(costs[16]), P(costs[32]),
-                                     P(split16), P(split32), P(cplx),
-                                     P(mins), F, h8, w8, st),
-                 "ks_decide_split")
+    _build.check(lib.ks_decide_split(
+        P(tiers[8][1]), P(tiers[16][1]), P(tiers[32][1]), P(split16),
+        P(split32), P(cplx), P(mins), F, h8, w8, st), "ks_decide_split")
     _build.count("decide_split")
-    return _maps(split32, split16, cplx, modes[8], modes[16], modes[32],
-                 costs[8], costs[16])
+    return _maps(split32, split16, cplx, tiers[8], tiers[16], tiers[32])

@@ -6,8 +6,11 @@ sequence has it, SAO (K8 statistics -> K16 decision -> K9).
 
 Counterpart of ks265codec_tpu/ops/intercode.py::_inter_code_core (with
 `_code_tu_class`, the chroma branch, and `code_inter_frame_jit`) for
-uni-prediction, no sign hiding and no cu_qp_delta (the
-effective-QP chain `_effective_qp4` is then the identity). The
+uni-prediction and no cu_qp_delta (the effective-QP chain
+`_effective_qp4` is then the identity). Sign hiding (K2's
+encode/sbh.py), where the PPS enables it, runs on every inter TU with the
+diagonal scan, before the TU's sums, and in the seeded intra scan; the
+reference runs no RDOQ in P pictures, and neither does the port. The
 coefficient planes come back dense; the reference's sparse packing is a
 transfer workaround and is not ported.
 
@@ -35,7 +38,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..interop import device_log_table, device_tables
+from ..encode.sbh import apply_sbh
+from ..interop import device_log_table, device_rank_table, device_tables
 from . import _build
 from .decide import _block_sum, _tree, fma32
 from .deblock import deblock_frames
@@ -95,11 +99,13 @@ def tu_sums(resi: torch.Tensor, rr: torch.Tensor, lev: torch.Tensor):
     return _block_sum(rf * rf), _block_sum(df * df), bits
 
 
-def _code_class(src, pred, xs, ys, qp, n: int):
+def _code_class(src, pred, xs, ys, qp, n: int, sbh: bool):
     """Levels, reconstructed residual and the three sums of one class."""
     log2 = n.bit_length() - 1
     resi = _take(src, xs, ys, n) - _take(pred, xs, ys, n)
     lev = quantize(forward_transform(resi, log2), qp, log2, intra=False)
+    if sbh:
+        lev = apply_sbh(lev, torch.zeros_like(qp), n)   # diagonal scan
     rr = dequant_itx(lev, qp, n)
     return lev, rr, tu_sums(resi, rr, lev)
 
@@ -144,10 +150,10 @@ def bs_maps(cbf4, e2_v, e2_h, etb_v, etb_h, emv_v, emv_h, deblock: bool):
 
 # ------------------------------------------------------- plain PyTorch path
 
-def cu_sums(si, pi, tu_packs: dict, n_cu: int):
+def cu_sums(si, pi, tu_packs: dict, n_cu: int, sbh: bool):
     """Per-CU float32 (d_skip, d_coded, bits) (3, n_cu + 1) of the plain
     path, and each class's (xs, ys, cid, valid, plane, lev, rr). si / pi:
-    (y, cb, cr) int32 source and prediction planes."""
+    (y, cb, cr) int32 source and prediction planes; sbh: sign hiding."""
     dev = si[0].device
     results = {}
     acc = torch.zeros((3, n_cu + 1), dtype=torch.float32, device=dev)
@@ -162,7 +168,7 @@ def cu_sums(si, pi, tu_packs: dict, n_cu: int):
         valid = valid.bool()
         a = torch.zeros_like(acc)
         if is_luma:
-            lev, rr, sums = _code_class(si[0], pi[0], xs, ys, qp, n)
+            lev, rr, sums = _code_class(si[0], pi[0], xs, ys, qp, n, sbh)
             for i in range(3):
                 a[i, cid[valid]] = sums[i][valid]
             plane = None
@@ -175,7 +181,7 @@ def cu_sums(si, pi, tu_packs: dict, n_cu: int):
             for pl in (0, 1):
                 m = plane == pl
                 lv, r2, sums = _code_class(si[1 + pl], pi[1 + pl], xs[m],
-                                           ys[m], qp[m], n)
+                                           ys[m], qp[m], n, sbh)
                 lev[m], rr[m], bits[m] = lv, r2, sums[2]
             # chroma adds rate, not distortion; Cb then Cr per CU
             for pl in (0, 1):
@@ -189,14 +195,14 @@ def cu_sums(si, pi, tu_packs: dict, n_cu: int):
 
 def code_inter_frame_plain(src, refs, slot0, mv0, tu_packs, cu_lam,
                            intra_sched, n_cu: int, h8: int, w8: int,
-                           pic_w: int, pic_h: int, strong: bool):
+                           pic_w: int, pic_h: int, strong: bool, sbh: bool):
     """Steps 1-5 on the plain path: returns (pred, rec, coef, cbf4), each
     plane set a (y, cb, cr) tuple; rec is pre-deblocking."""
     dev = src[0].device
     si = [p.to(torch.int32) for p in src]
     pred = mc_planes(refs, slot0, mv0, h8, w8, pic_w, pic_h, reference=True)
     pi = [p.to(torch.int32) for p in pred]
-    acc, results = cu_sums(si, pi, tu_packs, n_cu)
+    acc, results = cu_sums(si, pi, tu_packs, n_cu, sbh)
     d_skip, d_coded, bits = acc
     drop = (d_skip - d_coded) <= cu_lam.to(dev) * (bits + 10.0)
     rec = [p.clone() for p in pi]
@@ -235,7 +241,7 @@ def _i32(a, dev):
 
 def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
                           intra_sched, n_cu: int, h8: int, w8: int,
-                          pic_w: int, pic_h: int, strong: bool):
+                          pic_w: int, pic_h: int, strong: bool, sbh: bool):
     """Steps 1-5 on the card (see the module note)."""
     for t in tuple(src) + tuple(refs):
         if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
@@ -268,9 +274,12 @@ def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
             P(src[0]), P(src[1]), P(src[2]), P(pred[0]), P(pred[1]),
             P(pred[2]), P(f[0]), P(f[1]), P(f[2]), P(plane), P(f[4]),
             P(lev), P(rr), P(sums[ci]), P(tab),
-            P(device_log_table(dev, True)), K, sums.shape[2], n,
-            int(is_luma), H, W, st), "ks_inter_tu_class")
+            P(device_log_table(dev, True)), P(device_rank_table(dev)), K,
+            sums.shape[2], n, int(is_luma), int(sbh), H, W, st),
+            "ks_inter_tu_class")
         _build.count("inter_tu_class")
+        if sbh:
+            _build.count("inter_tu_class_k2")   # K2's sign hiding inlined
         cls.append((f, plane, lev, rr, K))
     drop = torch.empty(n_cu + 1, dtype=torch.int32, device=dev)
     _build.check(lib.ks_inter_gate(P(sums), P(ctab), P(_f32(cu_lam, dev)),
@@ -342,14 +351,15 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
                      n_cu: int, h8: int, w8: int, pic_w: int, pic_h: int,
                      boff: int, toff: int, cbo: int, cro: int,
                      deblock: bool, strong: bool, reference: bool = False,
-                     want_pred: bool = False, sao=None):
+                     want_pred: bool = False, sao=None, sbh: bool = False):
     """Code one P picture. src (y, cb, cr) uint8 planes, refs (R, ...)
     uint8 stacks; slot0 (h8*w8,), mv0 (h8*w8, 2) per-cell motion (slot
     -1 never reaches here: intra cells carry slot 0); tu_packs:
     {(is_luma, n): (xs, ys, qp, cu_id, valid[, plane])}; cu_lam
     (n_cu + 1,) float32; intra_sched: the intra CUs' schedule or None;
     bs_in: (e2_v, e2_h, etb_v, etb_h, emv_v, emv_h) per 4x4; qp4 per 4x4;
-    sao: None, or (tier, slice_qp, ctb_size) to run `sao_picture`.
+    sao: None, or (tier, slice_qp, ctb_size) to run `sao_picture`; sbh:
+    sign hiding (the PPS's sign_data_hiding_enabled).
     Returns ((y, cb, cr) deblocked (and SAO-filtered) uint8 planes,
     (y, cb, cr) int16 levels, the SAO parameters or None[, (y, cb, cr) MC
     prediction]). CUDA planes launch the kernels; CPU planes, or
@@ -359,13 +369,13 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
     fn = code_inter_frame_plain if plain else code_inter_frame_cuda
     pred, rec, coef, cbf4 = fn(src, refs, slot0.to(dev), mv0.to(dev),
                                tu_packs, cu_lam, intra_sched, n_cu, h8, w8,
-                               pic_w, pic_h, strong)
+                               pic_w, pic_h, strong, sbh)
     if intra_sched is not None:
         rec = [r[None].contiguous() for r in rec]
         coef = [c[None].contiguous() for c in coef]
         code_intra_frames_into(tuple(s[None].contiguous() for s in src),
-                               rec, coef, intra_sched, strong,
-                               reference=reference)
+                               rec, coef, intra_sched, strong, sbh=sbh,
+                               rdoq=False, reference=reference)
         rec = [r[0] for r in rec]
         coef = [c[0] for c in coef]
     bs_in = [a.to(dev) for a in bs_in]

@@ -89,11 +89,16 @@ def dequantize(levels: torch.Tensor, qp, log2: int,
     return _clip16(((tv + rnd) >> sp) << ps)
 
 
-def fwd_quant(resi: torch.Tensor, qp, n: int) -> torch.Tensor:
-    """Forward DCT + intra deadzone quantization (ops/wavefront._fwd_quant
-    with rdoq off)."""
+def fwd_quant(resi: torch.Tensor, qp, n: int,
+              rdoq: bool = False) -> torch.Tensor:
+    """Forward DCT, then RDOQ (encode/rdoq.py) or intra deadzone
+    quantization (ops/wavefront._fwd_quant of an intra block)."""
     log2 = n.bit_length() - 1
-    return quantize(forward_transform(resi, log2), qp, log2)
+    c = forward_transform(resi, log2)
+    if rdoq:
+        from ..encode.rdoq import rdoq as rdoq_levels
+        return rdoq_levels(c, qp, n, log2)
+    return quantize(c, qp, log2)
 
 
 def dequant_itx(levels: torch.Tensor, qp, n: int) -> torch.Tensor:

@@ -7,7 +7,8 @@ CUs after its inter CUs are reconstructed.
 
 Counterparts of ks265codec_tpu/ops/wavefront.py::_code_intra_frame_core
 (`_process_class`, `_refs_from_borders`, `_update_bottom/_update_right`),
-for the fast presets (no RDOQ, no sign hiding), and of
+with RDOQ and sign hiding (K2, encode/rdoq.py and encode/sbh.py) where the
+preset asks for them, and of
 `_recon_intra_frame_core` (`_recon_class`). The host side is a copy of
 `WavefrontIntraCoder` (native schedule build, level packing): the native
 `ks_build_intra_schedule` walks every frame in z-order, records each CU's
@@ -36,6 +37,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..encode.sbh import apply_sbh, scan_sel
 from ..hevc.tables import chroma_qp
 from . import _build
 from . import intra as tintra
@@ -266,13 +268,15 @@ def _refs(plane: torch.Tensor, f, x, y, al, ac, at, n: int, expand: int,
 
 
 def _blocks(src, rec, lev, f, x, y, modes, qp, al, ac, at, n: int,
-            expand: int, is_luma: bool, strong: bool) -> None:
-    """K blocks of one plane in place, rec (F, H, W) uint8 and lev
-    (F, H, W) int16. With a source plane (K6) the blocks are coded and
-    lev receives their levels; with src None (K11) their levels are read
-    from lev. rec receives the reconstruction."""
-    refs_u, refs_f = _refs(rec, f, x, y, al, ac, at, n, expand, is_luma,
-                           strong)
+            c_idx: int, strong: bool, sbh: bool, rdoq: bool) -> None:
+    """K blocks of plane c_idx in place, rec (F, H, W) uint8 and lev
+    (F, H, W) int16. With a source plane (K6) the blocks are coded (RDOQ
+    and sign hiding with the mode's scan where asked) and lev receives
+    their levels; with src None (K11) their levels are read from lev. rec
+    receives the reconstruction."""
+    is_luma = c_idx == 0
+    refs_u, refs_f = _refs(rec, f, x, y, al, ac, at, n, 1 if is_luma else 2,
+                           is_luma, strong and is_luma)
     pred = tintra.predict_mode(refs_u, refs_f, modes, n, is_luma)
     d = torch.arange(n, device=rec.device)
     fy = f[:, None, None]
@@ -281,13 +285,18 @@ def _blocks(src, rec, lev, f, x, y, modes, qp, al, ac, at, n: int,
     if src is None:
         levels = lev[fy, yy, xx].to(torch.int32)
     else:
-        levels = fwd_quant(src[fy, yy, xx].to(torch.int32) - pred, qp, n)
+        levels = fwd_quant(src[fy, yy, xx].to(torch.int32) - pred, qp, n,
+                           rdoq)
+        if sbh:
+            levels = apply_sbh(levels, scan_sel(modes, n.bit_length() - 1,
+                                                c_idx), n)
         lev[fy, yy, xx] = levels.to(lev.dtype)
     r = (pred + dequant_itx(levels, qp, n)).clamp(0, 255)
     rec[fy, yy, xx] = r.to(rec.dtype)
 
 
-def _scan_plain(srcs, recs, levs, sched: LevelSchedule, strong: bool):
+def _scan_plain(srcs, recs, levs, sched: LevelSchedule, strong: bool,
+                sbh: bool = False, rdoq: bool = False):
     """The level-by-level walk of both plain versions (srcs None: K11)."""
     F = sched.n_frames
     srcs = srcs or (None, None, None)
@@ -301,25 +310,27 @@ def _scan_plain(srcs, recs, levs, sched: LevelSchedule, strong: bool):
                 continue
             r, f = lvl[sel], fidx[sel]
             _blocks(srcs[0], recs[0], levs[0], f, r[:, X], r[:, Y],
-                    r[:, MODE], r[:, QP], r[:, AL], r[:, AC], r[:, AT], n, 1,
-                    True, strong)
+                    r[:, MODE], r[:, QP], r[:, AL], r[:, AC], r[:, AT], n, 0,
+                    strong, sbh, rdoq)
             for c, qf in ((1, QPCB), (2, QPCR)):
                 _blocks(srcs[c], recs[c], levs[c], f, r[:, X] >> 1,
                         r[:, Y] >> 1, r[:, CMODE], r[:, qf], r[:, AL],
-                        r[:, AC], r[:, AT], n // 2, 2, False, False)
+                        r[:, AC], r[:, AT], n // 2, c, strong, sbh, rdoq)
 
 
 def code_intra_frames_plain(src_y, src_cb, src_cr, sched: LevelSchedule,
-                            strong: bool):
+                            strong: bool, sbh: bool = False,
+                            rdoq: bool = False):
     """Plain PyTorch version of the scan. Sources (F, H, W) and
-    (F, H/2, W/2) uint8 on one device; sched already on that device.
-    Returns (rec_y, rec_cb, rec_cr) uint8 and (lev_y, lev_cb, lev_cr)
-    int16 planes; cells no CU covers stay 0."""
+    (F, H/2, W/2) uint8 on one device; sched already on that device; sbh
+    and rdoq select sign hiding and RDOQ. Returns (rec_y, rec_cb, rec_cr)
+    uint8 and (lev_y, lev_cb, lev_cr) int16 planes; cells no CU covers
+    stay 0."""
     srcs = (src_y, src_cb, src_cr)
     recs = [torch.zeros_like(p) for p in srcs]
     levs = [torch.zeros(p.shape, dtype=torch.int16, device=p.device)
             for p in srcs]
-    _scan_plain(srcs, recs, levs, sched, strong)
+    _scan_plain(srcs, recs, levs, sched, strong, sbh, rdoq)
     return tuple(recs), tuple(levs)
 
 
@@ -338,20 +349,25 @@ def recon_intra_frames_plain(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
 # ------------------------------------------------------------- CUDA kernel
 
 def code_intra_frames_cuda(src_y, src_cb, src_cr, sched: LevelSchedule,
-                           strong: bool, tables: torch.Tensor):
+                           strong: bool, tables: torch.Tensor,
+                           sbh: bool = False, rdoq: bool = False):
     """The scan on the card: one launch of `ks_intra_level` per level."""
     recs = [torch.zeros_like(p) for p in (src_y, src_cb, src_cr)]
     levs = [torch.zeros(p.shape, dtype=torch.int16, device=p.device)
             for p in (src_y, src_cb, src_cr)]
     code_intra_frames_into_cuda((src_y, src_cb, src_cr), recs, levs, sched,
-                                strong, tables)
+                                strong, tables, sbh, rdoq)
     return tuple(recs), tuple(levs)
 
 
 def code_intra_frames_into_cuda(srcs, recs, levs, sched: LevelSchedule,
-                                strong: bool, tables: torch.Tensor) -> None:
+                                strong: bool, tables: torch.Tensor,
+                                sbh: bool = False,
+                                rdoq: bool = False) -> None:
     """`code_intra_frames_into` on the card: one launch of
     `ks_intra_level` per level, in place."""
+    from ..encode.rdoq import RDOQ, SBH
+    from ..interop import device_rank_table
     src_y, src_cb, src_cr = srcs
     for t in tuple(srcs) + tuple(recs):
         if t.dtype != torch.uint8 or not t.is_contiguous() or not t.is_cuda:
@@ -370,14 +386,18 @@ def code_intra_frames_into_cuda(srcs, recs, levs, sched: LevelSchedule,
     rec_t = sched.recs.contiguous()
     st = _build.stream(src_y.device)
     P = _build.ptr
+    rank = device_rank_table(src_y.device)
+    flags = (RDOQ if rdoq else 0) | (SBH if sbh else 0)
     for base, kmax in sched.levels:
         rc = lib.ks_intra_level(
             P(src_y), P(src_cb), P(src_cr), P(recs[0]), P(recs[1]),
             P(recs[2]), P(levs[0]), P(levs[1]), P(levs[2]),
             ctypes.c_void_p(rec_t.data_ptr() + base * NFIELDS * 4),
-            P(tables), kmax, F, H, W, int(strong), st)
+            P(tables), P(rank), kmax, F, H, W, int(strong), flags, st)
         _build.check(rc, "ks_intra_level")
         _build.count("intra_level")
+        if flags:
+            _build.count("intra_level_k2")    # K2 inlined in this launch
 
 
 def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
@@ -433,19 +453,24 @@ def recon_intra_frames(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
 
 
 def code_intra_frames(src_y, src_cb, src_cr, sched: LevelSchedule,
-                      strong: bool, reference: bool = False):
-    """The intra coding scan for a batch. CUDA tensors launch the kernel;
-    CPU tensors, or reference=True, run `code_intra_frames_plain`."""
+                      strong: bool, sbh: bool = False, rdoq: bool = False,
+                      reference: bool = False):
+    """The intra coding scan for a batch, with sign hiding and RDOQ where
+    asked. CUDA tensors launch the kernel; CPU tensors, or reference=True,
+    run `code_intra_frames_plain`."""
     sched = sched.to(src_y.device)
     if src_y.device.type != "cuda" or reference:
-        return code_intra_frames_plain(src_y, src_cb, src_cr, sched, strong)
+        return code_intra_frames_plain(src_y, src_cb, src_cr, sched, strong,
+                                       sbh, rdoq)
     from ..interop import device_tables
     return code_intra_frames_cuda(src_y, src_cb, src_cr, sched, strong,
-                                  device_tables(src_y.device))
+                                  device_tables(src_y.device), sbh, rdoq)
 
 
 def code_intra_frames_into(srcs, recs, levs, sched: LevelSchedule,
-                           strong: bool, reference: bool = False) -> None:
+                           strong: bool, sbh: bool = False,
+                           rdoq: bool = False,
+                           reference: bool = False) -> None:
     """The intra coding scan in place over existing planes (F, H, W):
     srcs and recs uint8, levs int16. Only the scheduled CUs are coded, and
     they read neighbours that no CU of the schedule writes from the planes
@@ -454,11 +479,11 @@ def code_intra_frames_into(srcs, recs, levs, sched: LevelSchedule,
     plain version."""
     sched = sched.to(srcs[0].device)
     if srcs[0].device.type != "cuda" or reference:
-        _scan_plain(srcs, recs, levs, sched, strong)
+        _scan_plain(srcs, recs, levs, sched, strong, sbh, rdoq)
         return
     from ..interop import device_tables
     code_intra_frames_into_cuda(srcs, recs, levs, sched, strong,
-                                device_tables(srcs[0].device))
+                                device_tables(srcs[0].device), sbh, rdoq)
 
 
 def recon_intra_frames_into(levs, recs, sched: LevelSchedule, strong: bool,

@@ -6,7 +6,7 @@ JAX run: the port's encoder is held against the reference elsewhere."""
 import numpy as np
 
 from ks265codec_tpu_torch.cli import app_decoder, app_encoder
-from ks265codec_tpu_torch.encode.encoder import encode_sequence
+from ks265codec_tpu_torch.encode.encoder import HevcEncoder, encode_sequence
 from ks265codec_tpu_torch.utils.md5 import frame_md5
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
 
@@ -83,3 +83,25 @@ def test_cli_ippp_round_trip_on_cpu(tmp_path, capsys):
     assert rc == 0
     lines = [ln.split()[3] for ln in out.splitlines() if ln.startswith("POC ")]
     assert lines == [",".join(frame_md5(r)) for r in recons]
+
+
+def test_cli_fast_preset_default_rdoq_on_cpu(tmp_path):
+    """`-preset fast -iper 1` with the flag defaults (`-rdoq 1`): RDOQ,
+    sign hiding and the effort-1 decision run, and app_encoder writes
+    HevcEncoder's bytes for its configuration."""
+    frames = _frames()
+    yuv = tmp_path / "in.yuv"
+    yuv.write_bytes(b"".join(f.tobytes() for f in frames))
+    bs = tmp_path / "fast.265"
+    argv = ["-i", str(yuv), "-wdt", str(W), "-hgt", str(H), "-frms", str(N),
+            "-b", str(bs), "-preset", "fast", "-qp", "30", "-iper", "1",
+            "-device", "cpu"]
+    assert app_encoder.main(argv) == 0
+    def cfg():
+        return app_encoder.cfg_from_args(app_encoder.build_parser()
+                                         .parse_args(argv))
+
+    run = HevcEncoder(cfg(), device="cpu").cfg
+    assert run.rdoq and run.sign_bit_hiding and run.decide_effort == 1
+    want, _ = encode_sequence(frames, cfg(), device="cpu")
+    assert bs.read_bytes() == want

@@ -2,8 +2,9 @@
 at small shapes chip_smoke.py does not cover (odd picture sizes, QP 0 and
 51, deblock offsets, SAO on chroma only, sparse random levels), the
 low-delay P kernels (K12, K13, K15, K17 with K14) on a 128x96 IPPP
-encode's inputs, and the encoder and decoder on the kernels against
-themselves on the plain versions. Marked `cuda`: they skip where torch
+encode's inputs, the `fast` preset's (K2 alone, K5 at effort 1, K6 with
+RDOQ and sign hiding, K17 with sign hiding), and the encoder and decoder
+on the kernels against themselves on the plain versions. Marked `cuda`: they skip where torch
 finds no CUDA device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -432,3 +433,118 @@ def test_sao_ippp_encode_and_decode_on_the_card(dev):
     dec = HevcDecoder(device=dev)
     got = [frame_md5(f) for f in dec.decode_all(a)]
     assert got == want and dec.fast_pictures == len(frames)
+
+
+# ------------------------------------------------ the fast preset (K2)
+
+@pytest.mark.parametrize("flags", [1, 2, 3, 6])
+@pytest.mark.parametrize("n", [4, 8, 16, 32])
+def test_rdoq_sbh_kernel_matches_plain(dev, n, flags):
+    """K2 alone: RDOQ (1), sign hiding after intra (2) or inter (6)
+    deadzone rounding, both (3), on random coefficients at QP 0..51 with
+    every scan."""
+    from ks265codec_tpu_torch.encode import rdoq as trdoq
+    rng = np.random.RandomState(n + flags)
+    K = 300
+    mag = np.exp(rng.uniform(0, 10.4, (K, n, n)))
+    c = np.where(rng.rand(K, n, n) < 0.4, mag, 0) * rng.choice([-1, 1],
+                                                            (K, n, n))
+    c = torch.from_numpy(np.clip(c, -32767, 32767).astype(np.int32)).to(dev)
+    qp = torch.from_numpy(rng.randint(0, 52, K).astype(np.int32)).to(dev)
+    scan = torch.from_numpy((np.arange(K) % 3).astype(np.int32)).to(dev)
+    got = trdoq.rdoq_sbh(c, qp, scan, n, flags)
+    want = trdoq.rdoq_sbh(c, qp, scan, n, flags, reference=True)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("qps", [(0, 22), (37, 51)])
+def test_decide_effort1_kernel_matches_plain(dev, qps):
+    enc = HevcEncoder(EncoderConfig(width=200, height=120, preset="fast",
+                                    intra_period=1, sao=0), device=dev)
+    src = _padded(_frames(2, 200, 120, 3 + sum(qps)), enc.sps, dev)
+    args = [torch.as_tensor(a, device=dev)
+            for a in tdec.frame_lambdas(list(qps))]
+    got = tdec.decide_frames_cuda(*src, *args, effort=1)
+    want = tdec.decide_frames_plain(*src, *args, effort=1)
+    for name in tdec.MAP_NAMES:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.parametrize("tiles,sbh,rdoq", [("", True, True),
+                                            ("3x2", True, False)])
+def test_intra_scan_rdoq_sbh_kernel_matches_plain(dev, tiles, sbh, rdoq):
+    enc = HevcEncoder(EncoderConfig(width=200, height=120, preset="fast",
+                                    intra_period=1, sao=0, tiles=tiles),
+                      device=dev)
+    sps, pps = enc.sps, enc.pps
+    src = _padded(_frames(2, 200, 120, 6), sps, dev)
+    qps = [0, 33]
+    dec = tdec.decide_frames(*src, qps, effort=1)
+    maps = {k: v.cpu().numpy() for k, v in dec.items()}
+    _, tile8, _ = tile_region_maps(pps, sps)
+    ph, pw = src[0].shape[1:]
+    batch = []
+    for f, qp in enumerate(qps):
+        log2m, modes8, cmodes8 = decision_maps8(
+            maps["split32"][f], maps["split16"][f], maps["mode8"][f],
+            maps["mode16"][f], maps["mode32"][f], sps, ph >> 3, pw >> 3,
+            maps["cm8"][f], maps["cm16"][f], maps["cm32"][f])
+        batch.append(dict(log2m=log2m, modes8=modes8, cmodes8=cmodes8,
+                          qp_map8=np.full(log2m.shape, qp, np.uint8),
+                          tile8=tile8))
+    sched = twf.WavefrontIntraCoder().pack(batch, 0, 0, sps).to(dev)
+    got = twf.code_intra_frames_cuda(*src, sched, True, device_tables(dev),
+                                     sbh, rdoq)
+    want = twf.code_intra_frames_plain(*src, sched, True, sbh, rdoq)
+    for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(a, b)
+
+
+def _fast_ippp_cfg(**over):
+    """bench.py's inter leg at 128x96: fast, zerolatency, QP 30, the
+    preset's SAO (tier 3)."""
+    return EncoderConfig(**dict(dict(
+        width=128, height=96, preset="fast", latency="zerolatency", rc=0,
+        qp=30, intra_period=0), **over))
+
+
+def test_inter_code_sbh_kernel_matches_plain(dev):
+    """K17 with sign hiding (the `fast` preset's P pictures, SAO tier 3)
+    on the inputs of a 6-frame 128x96 encode on the plain versions."""
+    from ks265codec_tpu_torch.ops import intercode
+    calls = []
+    orig = intercode.code_inter_frame
+
+    def spy(*a, **k):
+        calls.append((a, dict(k)))
+        return orig(*a, **k)
+
+    intercode.code_inter_frame = spy
+    try:
+        encode_sequence(_moving(6, 128, 96, 8), _fast_ippp_cfg(), device=dev,
+                        reference=True)
+    finally:
+        intercode.code_inter_frame = orig
+    assert calls and all(k["sbh"] for _, k in calls)
+    assert any(a[6] is not None for a, _ in calls)
+    for a, k in calls:
+        got = intercode.code_inter_frame(*a, **dict(k, reference=False))
+        want = intercode.code_inter_frame(*a, **dict(k, reference=True))
+        for x, y in zip(got[0] + got[1] + got[2], want[0] + want[1]
+                        + want[2]):
+            assert torch.equal(x, y)
+
+
+def test_fast_ippp_encode_and_decode_on_the_card(dev):
+    """A 4-frame `fast` IPPP encode on the kernels equals its plain encode,
+    and the card's decoder reproduces its recon through the fast paths."""
+    frames = _moving(4, 128, 96, 9)
+    a, ra = encode_sequence(frames, _fast_ippp_cfg(), device=dev)
+    b, rb = encode_sequence(frames, _fast_ippp_cfg(), device=dev,
+                            reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in ra]
+    assert [frame_md5(r) for r in rb] == want
+    dec = HevcDecoder(device=dev)
+    assert [frame_md5(f) for f in dec.decode_all(a)] == want
+    assert dec.fast_pictures == len(frames)

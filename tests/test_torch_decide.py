@@ -1,6 +1,9 @@
 """K5: the port's plain decision pass against the JAX package's
-decide_frames_jit (effort 0, the fast presets), all 13 maps, on a 3-frame
-batch at QP 22 / 27 / 37: exact equality, float32 cost maps included."""
+decide_frames_jit at effort 0 (ultrafast, superfast) and effort 1 (the
+`fast` preset and slower), all 13 maps, on a 3-frame batch at QP 22 / 27 /
+37, and on one bench-like 1280x768 frame (the padded 720p shape, where the
+reference backend sums the frame total `cplx` in windows): exact
+equality, float32 cost maps and the frame total included."""
 
 import math
 
@@ -35,12 +38,14 @@ def _frames(seed=3):
     return np.stack(ys), np.stack(us), np.stack(vs)
 
 
-@pytest.fixture(scope="module")
-def both():
+@pytest.fixture(scope="module", params=[0, 1], ids=["effort0", "effort1"])
+def both(request):
     y, u, v = _frames()
-    ref = jax_decide(y, u, v, list(QPS), 1.0, effort=0, want_costs=True)
+    ref = jax_decide(y, u, v, list(QPS), 1.0, effort=request.param,
+                     want_costs=True)
     got = tdec.decide_frames(torch.from_numpy(y), torch.from_numpy(u),
-                             torch.from_numpy(v), list(QPS))
+                             torch.from_numpy(v), list(QPS),
+                             effort=request.param)
     return ref, got
 
 
@@ -80,3 +85,35 @@ def test_bits_table_is_the_in_pass_rate():
                          0.0).sum(axis=(1, 2))
 
     assert np.array_equal(np.asarray(rate(lev)), tdec.bits_table()[lvals])
+
+
+def _frame720():
+    """One frame of bench.py's synthetic 720p content (moving disc over
+    gradients, seed 9), padded to the 64x64 CTB grid by edge replication."""
+    from ks265codec_tpu_torch.encode.intra_frame import pad_plane
+    h, w = 720, 1280
+    rng = np.random.RandomState(9)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = 128 + 60 * np.sin(xx / 37.0) + 40 * np.cos(yy / 29.0)
+    y[(yy - 300) ** 2 + (xx - 400) ** 2 < 90 ** 2] = 210
+    y = np.clip(y + rng.randn(h, w) * 3, 0, 255)
+    u = np.clip(128 + 30 * np.sin(xx[::2, ::2] / 41.0), 0, 255)
+    v = np.clip(128 + 30 * np.cos(yy[::2, ::2] / 43.0), 0, 255)
+    return tuple(pad_plane(p.astype(np.uint8), ph, pw).astype(np.uint8)[None]
+                 for p, ph, pw in ((y, 768, 1280), (u, 384, 640),
+                                   (v, 384, 640)))
+
+
+@pytest.mark.parametrize("effort", [0, 1])
+def test_frame_total_matches_reference_at_720p(effort):
+    """At 1280x768 the map of 32-blocks is 24 x 40: the reference backend
+    sums the frame total over two zero-padded 24 x 32 windows, and the
+    port must give the same float32 `cplx` (and the other 12 maps)."""
+    y, u, v = _frame720()
+    ref = jax_decide(y, u, v, [27], 1.0, effort=effort, want_costs=True)[0]
+    got = tdec.decide_frames(torch.from_numpy(y), torch.from_numpy(u),
+                             torch.from_numpy(v), [27], effort=effort)
+    assert np.float32(got["cplx"][0].item()) == np.float32(ref[3])
+    for idx, name in enumerate(tdec.MAP_NAMES):
+        g = got[name][0].numpy()
+        assert np.array_equal(g, np.asarray(ref[idx]).astype(g.dtype)), name

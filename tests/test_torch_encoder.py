@@ -100,7 +100,8 @@ def test_batches_and_pipelining_do_not_change_bytes():
     (dict(pcm=True), "PCM"),
     (dict(slices=2, tiles=""), "multiple slices"),
     (dict(fpp=False), "per-frame path"),
-    (dict(preset="fast"), "RDOQ"),
+    (dict(preset="medium", intra_period=0, latency="zerolatency"),
+     "weighted prediction"),
 ])
 def test_unported_configurations_raise(overrides, missing):
     kw = _cfg("2x2")

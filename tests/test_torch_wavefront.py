@@ -1,6 +1,8 @@
 """K6: the port's plain intra coding scan against the JAX package's
 WavefrontIntraCoder (vmapped `_code_intra_frame_core`) on the same
-decisions, with tiles on and off: recon and levels exactly equal."""
+decisions, with tiles on and off, and with K2 inside it (RDOQ and sign
+hiding without tiles, sign hiding alone with tiles 2x2): recon and levels
+exactly equal."""
 
 import numpy as np
 import pytest
@@ -34,10 +36,12 @@ def _frames():
     return out
 
 
-@pytest.fixture(scope="module", params=["", "2x2"], ids=["no_tiles",
-                                                         "tiles_2x2"])
+@pytest.fixture(scope="module", params=[
+    ("", False, False), ("2x2", False, False), ("", True, True),
+    ("2x2", True, False)], ids=["no_tiles", "tiles_2x2", "no_tiles_rdoq_sbh",
+                                "tiles_2x2_sbh"])
 def both(request):
-    tiles = request.param
+    tiles, sbh, rdoq = request.param
     je = JaxEncoder(JaxConfig(width=W, height=H, preset="ultrafast",
                               intra_period=1, sao=0, tiles=tiles))
     sps, pps = je.sps, je.pps
@@ -63,12 +67,12 @@ def both(request):
                           qp_map8=np.full(log2m.shape, qp, np.uint8),
                           tile8=tile8, n_tile_cols=ntc))
     ref = JaxCoder().code_frames(items, pps.cb_qp_offset, pps.cr_qp_offset,
-                                 sps)
+                                 sps, sbh=sbh, rdoq=rdoq)
     sched = twf.WavefrontIntraCoder().pack(items, pps.cb_qp_offset,
                                            pps.cr_qp_offset, sps)
     recs, levs = twf.code_intra_frames(
         *(torch.from_numpy(a.astype(np.uint8)) for a in src), sched,
-        bool(sps.strong_intra_smoothing))
+        bool(sps.strong_intra_smoothing), sbh=sbh, rdoq=rdoq)
     return ref, tuple(p.numpy() for p in recs + levs), sched
 
 

@@ -1,12 +1,16 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Four runs, each profiled the same way after a warm-up: the encode of the
+Six runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
 QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
 the decode of the stream it writes, the low-delay P encode of
 chip_smoke.py's inter path (BASELINE.json config 2: 1280x720, ultrafast,
 zerolatency, QP 30, intra_period 0, SAO from the preset, 24 synthetic
-frames: one IDR, then P pictures) and the decode of that IPPP stream.
+frames: one IDR, then P pictures), the decode of that IPPP stream, and
+bench.py's inter leg (the same with the fast preset: RDOQ and sign
+hiding, the effort-1 decision, SAO tier 3), and chip_smoke.py's fast
+all-intra encode (the main path's configuration with the fast preset, 16
+frames).
 Each is run once plain for the fps, once with the stage trace on (host
 wall time per stage: for the all-intra encode upload, decide, code,
 deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
@@ -46,8 +50,8 @@ from ks265codec_tpu_torch.utils import trace  # noqa: E402
 from ks265codec_tpu_torch.utils.yuv import YUVFrame  # noqa: E402
 
 
-def encode(frames):
-    enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="ultrafast",
+def encode(frames, preset: str = "ultrafast"):
+    enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset=preset,
                                     qp=27, intra_period=1, tiles="8x6"))
     out = []
     for f in frames:
@@ -57,8 +61,8 @@ def encode(frames):
     return out
 
 
-def encode_ippp(frames):
-    enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="ultrafast",
+def encode_ippp(frames, preset: str = "ultrafast"):
+    enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset=preset,
                                     latency="zerolatency", rc=0, qp=30,
                                     intra_period=0, frame_rate=30))
     out = []
@@ -145,6 +149,11 @@ def main() -> int:
     istream = b"".join(e.data for e in encode_ippp(ippp))
     decode(istream)                                     # warm-up
     profile("P decode", lambda: decode(istream), len(ippp))
+    encode_ippp(ippp[:4], "fast")                       # warm-up
+    profile("fast P encode", lambda: encode_ippp(ippp, "fast"), len(ippp))
+    fast16 = frames[:16]
+    encode(fast16, "fast")                              # warm-up
+    profile("fast encode", lambda: encode(fast16, "fast"), len(fast16))
     return 0
 
 
