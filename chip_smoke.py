@@ -82,7 +82,26 @@ port's package is not beside it. Phases, each printed as one line:
      warm-up with the counts reset, equal to its plain-version encode and decoded on the
      card to the encoder's md5s;
  13. app_encoder -preset fast -iper 1 with the default -rdoq on 4 frames
-     writes HevcEncoder's bytes, and app_decoder -md5 1 prints its md5s.
+     writes HevcEncoder's bytes, and app_decoder -md5 1 prints its md5s;
+ 14. the B pictures (fast, offline, QP 27, EncoderConfig's default GOP-8):
+     (a) a 9-frame encode on the kernels (the IDR and one GOP-8) records
+     the op functions' inputs; K13 with the bi cost (motion, costs, dir8
+     and sad8), K14 with both lists (equal to the plain version and to
+     K17's prediction), K15 (both decision iterations and every snap
+     call) and K17 (SAO tier 3, sign hiding) are held against their
+     plain versions on its first B picture (POC 4) and timed; (b) the
+     same 9 frames on the plain versions give the same stream and
+     recons, then 25 frames are encoded with the launch counts reset
+     (K5 effort 1, K6 with K2, K7, K8, K9, K12, K13 with the bi cost,
+     K15, K14 uni and bi, K17, K16 must launch), at least 7 B pictures,
+     luma PSNR > 30 dB, b-adapt's GOP sizes printed; (c) the card
+     decodes that stream once recording K18's inputs and once timed:
+     all 25 pictures through the fast paths in display order with the
+     encoder's md5s, the first 4 in decode order equal with
+     reference=True, then K18 with both lists against its plain version
+     on the B picture with the most intra CUs; (d) app_encoder -preset
+     fast -latency offline on 10 frames writes HevcEncoder's bytes and
+     app_decoder -md5 1 prints its md5s.
 K2 runs inlined in K6 and K17: its launches are those of the K6 and K17
 kernels that ran its code (`intra_level_k2`, `inter_tu_class_k2`).
 The line before the last is the JSON kernel table with the fps of every
@@ -117,6 +136,13 @@ INTER_ROWS = ("lookahead", "motion_search", "inter_decide", "inter_mc",
               "inter_code", "sao_decide")
 FAST_ROWS = ("rdoq_sbh", "decide_effort1", "intra_scan_rdoq_sbh",
              "inter_code_sbh")
+BFRAMES = 25
+# the offline hierarchical-B configuration: EncoderConfig's defaults
+# (bframes 7, b_adapt 1, lookahead 40, intra_period 64) at the fast preset
+BFRAME = dict(width=1280, height=720, preset="fast", latency="offline",
+              rc=0, qp=27, frame_rate=30)
+B_ROWS = ("me_bi", "inter_mc_bi", "inter_decide_bi", "inter_code_bi",
+          "inter_recon_bi")
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
 # SMs x 64 INT32 lanes per SM (Hopper SM) x 1.98 GHz boost clock, the clock
 # behind the data sheet's 67 TFLOP/s FP32. FP32 rate: 132 SMs x 128 FP32
@@ -206,15 +232,73 @@ def mc_ops(mv, n: int, luma: bool):
             + n * n * torch.where(fy, taps, 1))
 
 
-def rough_ops(mv, n: int):
-    """Operations of one uni-predicted motion's rough cost at CU size n
-    (K15's `rough_cu`): luma and both chroma MC, then per sample the
-    residual, the forward transform (2 stages of t multiply-adds, matrix
-    form, t the TU size) and about 10 for quantisation, dequantisation,
-    error and level bits."""
+def mc3_ops(mv, n: int):
+    """MC operations of an n x n luma block and its two n/2 chroma blocks
+    (mc_ops)."""
+    return mc_ops(mv, n, True) + 2 * mc_ops(mv, n // 2, False)
+
+
+def uses(s0, s1):
+    """(list 0, list 1) masks of the motions a prediction reads (K14's
+    `_combine`): both where both slots are >= 0, list 1 alone where only
+    its slot is, list 0 otherwise; s1 None: list 0 everywhere."""
+    s0 = s0.detach().cpu()
+    if s1 is None:
+        return torch.ones_like(s0, dtype=torch.bool), None
+    s1 = s1.detach().cpu()
+    return (s0 >= 0) | (s1 < 0), s1 >= 0
+
+
+def pred_ops(n: int, mv0, s0, mv1=None, s1=None, chroma: bool = True):
+    """MC operations of predicting n x n blocks (with chroma: and their
+    two n/2 chroma blocks) from motion mv0 / mv1 with slots s0 / s1: one
+    separable filter per list read, two where a block is bi-predicted,
+    and 3 a sample for the rounding combine."""
+    f = (lambda mv: mc3_ops(mv, n)) if chroma else \
+        (lambda mv: mc_ops(mv, n, True))
+    u0, u1 = uses(s0, s1)
+    ops = torch.where(u0, f(mv0), 0)
+    if u1 is not None:
+        ops = ops + torch.where(u1, f(mv1), 0)
+    return ops + 3 * n * n * (1.5 if chroma else 1)
+
+
+def rough_ops(mv, n: int, s0=None, mv1=None, s1=None):
+    """Operations of one motion's rough cost at CU size n (K15's
+    `rough_cu`): luma and both chroma MC (pred_ops; both lists where a B
+    picture's motion is bi-predicted), then per sample the residual, the
+    forward transform (2 stages of t multiply-adds, matrix form, t the TU
+    size) and about 10 for quantisation, dequantisation, error and level
+    bits."""
     t, tc = min(n, 32), min(n // 2, 16)
-    return (mc_ops(mv, n, True) + 2 * mc_ops(mv, n // 2, False)
+    if s0 is None:
+        s0 = torch.zeros(mv.shape[:-1], dtype=torch.int64)
+    return (pred_ops(n, mv, s0, mv1, s1) - 3 * n * n * 1.5
             + n * n * (2 * t + 11) + 2 * (n // 2) ** 2 * (2 * tc + 11))
+
+
+def planes_mc_ops(slot0, mv0, slot1=None, mv1=None) -> float:
+    """MC operations of a whole picture's prediction from per-8x8-cell
+    motion (K14): pred_ops of each cell."""
+    return float(pred_ops(8, mv0.cpu(), slot0.cpu(),
+                          None if mv1 is None else mv1.cpu(),
+                          None if slot1 is None else slot1.cpu()).sum())
+
+
+def table_row(rows: dict, name: str, source: str, replaces: str, err, ms,
+              plain, nbytes, ops, counters, required=None, fp_ops=0.0):
+    """Put kernel `name`'s row in `rows` (source under csrc/, the replaced
+    reference function, the comparison's error, the kernel's and the plain
+    version's ms, the bound from nbytes / ops / fp_ops, the launch counters
+    and those the main path must launch). Returns (bound ms, bound by)."""
+    bnd, by = bound_ms(nbytes, ops, fp_ops)
+    rows[name] = dict(name=name, route="cuda",
+                      source=f"ks265codec_tpu_torch/csrc/{source}",
+                      replaces=f"ks265codec_tpu/{replaces}",
+                      max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                      bound_by=by, library_ms=None, counters=counters,
+                      required=required or counters)
+    return bnd, by
 
 
 def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
@@ -229,17 +313,8 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     from ks265codec_tpu_torch.ops.mc import mc_planes_cuda, mc_planes_plain
     rows = {}
 
-    def row(name, source, replaces, err, ms, plain, nbytes, ops, counters,
-            required=None, fp_ops=0.0):
-        bnd, by = bound_ms(nbytes, ops, fp_ops)
-        rows[name] = dict(name=name, route="cuda",
-                          source=f"ks265codec_tpu_torch/csrc/{source}",
-                          replaces=f"ks265codec_tpu/{replaces}",
-                          max_abs_err=err, ms=ms, plain_ms=plain,
-                          bound_ms=bnd, bound_by=by, library_ms=None,
-                          counters=counters,
-                          required=required or counters)
-        return bnd, by
+    def row(*a, **k):
+        return table_row(rows, *a, **k)
 
     # K12: the downsample of frame 1 and its features against frame 0
     cur, prev = calls["frame_features_batch"][-1][0][:2]
@@ -325,25 +400,7 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     ms = cuda_ms(lambda: tid.decide_tiers(*a, **dict(k, reference=False)))
     plain = cuda_ms(lambda: tid.decide_tiers(*a, **dict(k, reference=True)),
                     reps=3, warm=False)
-    # operations, counted from this call's tiers and motions: per valid
-    # candidate its separable luma MC and SAD (3 a sample); per CU the
-    # rough cost (rough_ops) of the best merge candidate and of the ME
-    # motion where they exist, or, at the zero-only tier, of every valid
-    # candidate; bytes: the picture and the reference read once, the
-    # results written
-    ops, nbytes, ncu = 0.0, 3.0 * a[0][0].numel(), 0
-    for (n, zero_only), ta, out in zip(a[3], a[2], first):
-        cv, cmv = ta["cvalid"].cpu().bool(), ta["cmv0"].cpu().long()
-        ncu += cv.shape[1]
-        nbytes += cv.shape[1] * 9
-        if zero_only:
-            ops += float(rough_ops(cmv, n)[cv].sum())
-            continue
-        ops += float((mc_ops(cmv, n, True) + 3 * n * n)[cv].sum())
-        best = out[1].cpu().long()
-        bmv = cmv.gather(0, best[None, :, None].expand(1, -1, 2))[0]
-        ops += float(rough_ops(bmv, n)[cv.any(0)].sum())
-        ops += float(rough_ops(ta["mmv0"], n)[ta["ms0"].cpu() >= 0].sum())
+    ops, nbytes, ncu = decide_call_ops(a, first, False)
     bnd, by = row("inter_decide", "inter_decide.cu", "ops/interdecide.py:157",
                   err, ms, plain, nbytes, ops,
                   ["inter_decide", "inter_cand_sads"], ["inter_decide"])
@@ -360,14 +417,13 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     gk, gp = k17_outputs(a, k, "K17 inter code")
     src, refs, slot0, mv0 = a[:4]
     h8, w8, pic_w, pic_h = a[10:14]
-    mca = (refs, slot0.to(dev), mv0.to(dev), h8, w8, pic_w, pic_h)
+    mca = (refs, slot0.to(dev), mv0.to(dev),
+           torch.full_like(slot0, -1).to(dev), torch.zeros_like(mv0).to(dev),
+           False, h8, w8, pic_w, pic_h)
     mk = mc_planes_cuda(*mca)
 
     def mc_plain():
-        return mc_planes_plain(*refs, mca[1], mca[2],
-                               torch.full_like(mca[1], -1),
-                               torch.zeros_like(mca[2]), False, h8, w8,
-                               pic_w, pic_h)
+        return mc_planes_plain(*refs, *mca[1:])
 
     mp = mc_plain()
     for c, u, v, w in zip("YUV", mk, mp, gk[3]):
@@ -379,11 +435,9 @@ def inter_kernel_phases(calls: dict, yuv, dev, card: str) -> dict:
     # operations: the separable filters this run's motion needs (mc_ops)
     # and the rounding combine (3 a sample); bytes: the reference read and
     # the prediction written once, the motion read
-    mc_total = float((mc_ops(mv0, 8, True)
-                      + 2 * mc_ops(mv0, 4, False)).sum())
     bnd, by = row("inter_mc", "inter_code.cu", "ops/mc.py:180",
                   max_abs_err(mk, mp), ms, plain, 2 * npx + 12 * h8 * w8,
-                  mc_total + 3 * npx, ["inter_mc"])
+                  planes_mc_ops(slot0, mv0), ["inter_mc"])
     print(f"phase K14 MC ({h8 * w8} cells): kernel planes == plain == K17's "
           f"prediction, kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
           f"{bnd:.4f} ms ({by})", flush=True)
@@ -667,16 +721,15 @@ def inter_code_phase(a, k, gk, gp, name: str, counters: list):
     # statistics and type maps; K16's at the FP32 rate); bytes: the
     # picture, the reference, the recon and the int16 levels once each
     npx = src[0].numel() * 1.5
-    mc_total = float((mc_ops(mv0, 8, True)
-                      + 2 * mc_ops(mv0, 4, False)).sum())
+    mc_total = planes_mc_ops(a[2], mv0, k.get("slot1"), k.get("mv1"))
     per = 10 + (8 if k.get("sbh") else 0)
     tu_ops = sum(int(p[4].sum()) * n * n * (4 * n + per)
                  for (_, n), p in a[4].items())
     ncl = 2 if tier <= 1 else 4
     sao_ops = (src[0].numel() * 15.0 * ncl
                + 12.0 * int((gk[2][0][0] != 0).sum()) * cs * cs)
-    bnd, by = bound_ms(npx * (1 + 1 + 1 + 2),
-                       mc_total + 3 * npx + tu_ops + sao_ops,
+    nref = 2 if k.get("has_l1") else 1
+    bnd, by = bound_ms(npx * (nref + 1 + 1 + 2), mc_total + tu_ops + sao_ops,
                        decide_ops(sao_stats(tier), tier, gk[2]))
     print(f"phase K17 inter code{' with sign hiding' if k.get('sbh') else ''}"
           f" (seeded intra scan "
@@ -696,15 +749,18 @@ def inter_code_phase(a, k, gk, gp, name: str, counters: list):
     return row, sao_stats
 
 
-def k18_phase(calls: list, card: str) -> dict:
+def k18_phase(calls: list, card: str, bi: bool = False) -> dict:
     """K18 (`recon_inter_filter`: K14, `ks_inter_recon`, the seeded K11, K7,
-    K9) against its plain version on the recorded P picture of the stream
-    with the most intra CUs; returns its table row."""
+    K9) against its plain version on the recorded P picture (bi: B picture,
+    both lists) of the stream with the most intra CUs; returns its table
+    row."""
     from ks265codec_tpu_torch.ops import wavefront as wf
+    kind = "B" if bi else "P"
     with_intra = [(int((np.asarray(c[0][9].recs)[:, wf.VALID] == 1).sum()), i)
-                  for i, c in enumerate(calls) if c[0][9] is not None]
+                  for i, c in enumerate(calls) if c[0][9] is not None
+                  and bool(c[1].get("has_l1")) == bi]
     if not with_intra:
-        raise AssertionError("no decoded P picture holds intra CUs")
+        raise AssertionError(f"no decoded {kind} picture holds intra CUs")
     n_intra, i = max(with_intra)
     a, k = calls[i]
     gk = wf.recon_inter_filter(*a, **dict(k, reference=False))
@@ -728,8 +784,7 @@ def k18_phase(calls: list, card: str) -> dict:
     # and SAO as the K7 and K9 rows count them; bytes: the reference, the
     # int16 levels and the planes written once each
     npx = coefs[0].numel() * 1.5
-    ops = float((mc_ops(mv0, 8, True) + 2 * mc_ops(mv0, 4, False)).sum())
-    ops += 3 * npx
+    ops = planes_mc_ops(slot0, mv0, k.get("slot1"), k.get("mv1"))
     cf = [c.cpu() for c in coefs]
     for pl, x, y, n in wf.inter_tu_list(log2m8.numpy(),
                                         inter8.numpy().astype(bool)):
@@ -746,12 +801,15 @@ def k18_phase(calls: list, card: str) -> dict:
     if sao_params is not None:
         cs = a[22]
         ops += 12.0 * int((sao_params[0] != 0).sum()) * cs * cs
-    bnd, by = bound_ms(refs[0][0].numel() * 1.5 + 2 * npx + npx, ops)
-    print(f"phase K18 inter recon (P picture {i} of the decode, {n_intra} "
+    bnd, by = bound_ms(refs[0][0].numel() * 1.5 * (2 if bi else 1)
+                       + 2 * npx + npx, ops)
+    print(f"phase K18 inter recon ({kind} picture {i} of the decode, "
+          f"{n_intra} "
           f"intra CUs): planes equal, kernel {ms:.3f} ms (K14, ks_inter_recon,"
           f" the seeded K11, K7 and K9), plain {plain:.3f} ms, bound "
           f"{bnd:.4f} ms ({by})", flush=True)
-    return dict(name="inter_recon", route="cuda",
+    return dict(name="inter_recon_bi" if bi else "inter_recon",
+                route="cuda",
                 source="ks265codec_tpu_torch/csrc/inter_recon.cu",
                 replaces="ks265codec_tpu/ops/wavefront.py:549",
                 max_abs_err=max_abs_err(gk, gp), ms=ms, plain_ms=plain,
@@ -793,6 +851,374 @@ def decide_ops(stats, tier: int, prm) -> float:
             bo = torch.where(type_[1] == 1, bo, 0.0)
         total += float(eo.sum() + bo.sum())
     return total
+
+
+def decide_call_ops(a, first, l1: bool) -> tuple[float, float, int]:
+    """Operations and bytes K15 needs for one decision call (per tier,
+    from its inputs and the plain version's output `first`), and its CUs:
+    per valid candidate its luma MC (both lists where bi-predicted) and
+    SAD; per CU the rough cost (rough_ops) of the best merge candidate
+    and of the ME motion where they exist, or, at the zero-only tier, of
+    every valid candidate; bytes: the picture and the references read
+    once, the results written."""
+    ops, nbytes, ncu = 0.0, 1.5 * a[0][0].numel() * (1 + a[1][0].shape[0]), 0
+    for (n, zero_only), ta, out in zip(a[3], a[2], first):
+        cv = ta["cvalid"].cpu().bool()
+        cs0, cmv0 = ta["cs0"].cpu(), ta["cmv0"].cpu().long()
+        cs1, cmv1 = ta["cs1"].cpu(), ta["cmv1"].cpu().long()
+        lists = (cmv1, cs1) if l1 else (None, None)
+        ncu += cv.shape[1]
+        nbytes += cv.shape[1] * 9
+        if zero_only:
+            ops += float(rough_ops(cmv0, n, cs0, lists[0], lists[1])[cv]
+                         .sum())
+            continue
+        ops += float(pred_ops(n, cmv0, cs0, *lists, chroma=False)[cv].sum())
+        best = out[1].cpu().long()
+
+        def pick(t):
+            return t.gather(0, best[None, :, None].expand(1, -1, 2))[0] \
+                if t.dim() == 3 else t.gather(0, best[None])[0]
+
+        bl = (pick(cmv1), pick(cs1)) if l1 else (None, None)
+        ops += float(rough_ops(pick(cmv0), n, pick(cs0), *bl)[cv.any(0)]
+                     .sum())
+        ms0, ms1 = ta["ms0"].cpu(), ta["ms1"].cpu()
+        ml = (ta["mmv1"].cpu().long(), ms1) if l1 else (None, None)
+        valid = (ms0 >= 0) | ((ms1 >= 0) if l1 else False)
+        ops += float(rough_ops(ta["mmv0"].cpu().long(), n, ms0, *ml)[valid]
+                     .sum())
+    return ops, nbytes, ncu
+
+
+def bframe_path(yuv, card: str, check_counts, rows: dict) -> dict:
+    """Phase 14, the B pictures (the offline hierarchical GOP-8 at the fast
+    preset, QP 27): (a) a 9-frame encode on the kernels (the IDR and one
+    GOP-8) records the inputs of K13, K15 and K17, and K13 with the bi
+    cost, K14 with both lists, K15 and K17 of its first B picture (POC 4)
+    are held against their plain versions and timed; (b) the same 9
+    frames on the plain versions give the same stream and recons, then a
+    25-frame encode is timed with the launch counts reset; (c) the card's
+    decode of that stream, timed, every picture through the fast paths
+    with the encoder's md5s, then K18 with both lists against its plain
+    version; (d) app_encoder -preset fast -latency offline on 10 frames
+    and app_decoder -md5 1 on its stream. Adds the B rows to `rows` and
+    returns the legs' fps."""
+    from ks265codec_tpu_torch.cli import app_decoder, app_encoder
+    from ks265codec_tpu_torch.decode.decoder import HevcDecoder
+    from ks265codec_tpu_torch.encode.config import EncoderConfig
+    from ks265codec_tpu_torch.encode.encoder import HevcEncoder
+    from ks265codec_tpu_torch.ops import _build
+    from ks265codec_tpu_torch.ops import intercode as tic
+    from ks265codec_tpu_torch.ops import interdecide as tid
+    from ks265codec_tpu_torch.ops import me2
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    from ks265codec_tpu_torch.ops.mc import mc_planes_cuda, mc_planes_plain
+
+    def bencode(frames_in, reference=False, gops=None):
+        enc = HevcEncoder(EncoderConfig(**BFRAME), reference=reference)
+        if gops is not None:
+            adapt = enc._b_adapt
+
+            def spy(idx0, gop_n):
+                gops.append(adapt(idx0, gop_n))
+                return gops[-1]
+            enc._b_adapt = spy
+        efs = []
+        for fr in frames_in:
+            efs += enc.encode_frame(fr)
+        efs += enc.flush()
+        return efs
+
+    def row(*a, **k):
+        return table_row(rows, *a, **k)
+
+    # ---- 14a: the B kernels on the inputs of the GOP's first B picture,
+    # recorded during the 9-frame kernel encode (each call tagged with the
+    # number of pictures coded before it)
+    calls = {}
+    spied = [(me2, "me_fused"), (tid, "decide_tiers"), (tid, "snap_sads"),
+             (tic, "code_inter_frame")]
+    saved = [(m, name, getattr(m, name)) for m, name in spied]
+
+    def spy(name, fn):
+        def g(*a, **k):
+            pic = len(calls.get("code_inter_frame", []))
+            calls.setdefault(name, []).append((a, k, pic))
+            return fn(*a, **k)
+        return g
+
+    for m, name, fn in saved:
+        setattr(m, name, spy(name, fn))
+    try:
+        ka = bencode(yuv[:9])
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    torch.cuda.synchronize()
+    code = [c for c in calls["code_inter_frame"] if c[1].get("has_l1")]
+    if len(code) != 7:
+        raise AssertionError(f"the 9-frame GOP coded {len(code)} B pictures")
+    bpic = code[0][2]                  # POC 4, coded after the P of POC 8
+
+    # K13 with the bi cost: the pyramid against L0[0] and L1[0], then the
+    # bi cost and the direction
+    a, k, _ = next(c for c in calls["me_fused"] if c[2] == bpic)
+    if not k.get("bi"):
+        raise AssertionError("the first B picture's search ran without bi")
+    gk = me2.me_fused(*a, **dict(k, reference=False))
+    gp = me2.me_fused(*a, **dict(k, reference=True))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("mv_q", "cost", "dir8", "sad8"), gk, gp):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K13 bi: {name} differs")
+    ms = cuda_ms(lambda: me2.me_fused(*a, **dict(k, reference=False)))
+    ms_uni = cuda_ms(lambda: me2.me_fused(*a, **dict(k, bi=False,
+                                                     reference=False)))
+    plain = cuda_ms(lambda: me2.me_fused(*a, **dict(k, reference=True)),
+                    reps=3, warm=False)
+    src = a[0]
+    Hs, Ws = src.shape
+    sr = me2.sr_for(a[2])
+    nq, n8 = (Hs // 16) * (Ws // 16), (Hs // 8) * (Ws // 8)
+    # operations: K13's row per reference (two here), and the bi cost per
+    # 8x8 block: both quarter-pel predictions (mc_ops), the combine (3 a
+    # sample), the SATD8 (about 6 x 64) and the decision; bytes: the
+    # picture and both references read once, motion, costs, dir8 and sad8
+    # written
+    ops = 2 * (nq * (2 * sr + 1) ** 2 * 16 * 3 + n8 * 49 * (16 + 64) * 3
+               + n8 * 49 * ((15 * 8 + 8 * 8) * 8 + 6 * 64 + 20))
+    ops += float((mc_ops(gk[0][0], 8, True) + mc_ops(gk[0][1], 8, True))
+                 .sum()) + n8 * (3 * 64 + 6 * 64 + 10)
+    nbi = int((gk[2] == 2).sum())
+    bnd, by = row("me_bi", "me.cu", "ops/me2.py:181",
+                  max_abs_err(list(gk), list(gp)), ms, plain,
+                  3.0 * src.numel() + 29 * n8, ops,
+                  ["me_down2", "me_dense_l2", "me_refine3", "me_subpel8",
+                   "me_bi_cost8"], ["me_bi_cost8"])
+    print(f"phase K13 bi (B picture POC 4, {Ws}x{Hs}, {n8} blocks, {nbi} "
+          f"bi-predicted): motion, costs, dir8 and sad8 equal, kernel "
+          f"{ms:.3f} ms (both lists' pyramids and the bi cost; "
+          f"{ms - ms_uni:.3f} ms over the two searches alone, {ms_uni:.3f} "
+          f"ms), plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
+          flush=True)
+
+    # K17 with list 1 (SAO tier 3, sign hiding) and K14 with both lists
+    # inside it, on the same picture
+    a, k, _ = code[0]
+    if not (k.get("sbh") and k.get("sao") and k["sao"][0] == 3):
+        raise AssertionError("the B picture ran K17 without sign hiding or "
+                             "SAO tier 3")
+    gk, gp = k17_outputs(a, k, "K17 inter code (B)")
+    refs, slot0, mv0 = a[1:4]
+    slot1, mv1 = k["slot1"], k["mv1"]
+    h8, w8, pic_w, pic_h = a[10:14]
+    dev = refs[0].device
+    mca = (refs, slot0.to(dev), mv0.to(dev), slot1.to(dev), mv1.to(dev),
+           True, h8, w8, pic_w, pic_h)
+    mk = mc_planes_cuda(*mca)
+    mp = mc_planes_plain(*refs, *mca[1:])
+    for c, u, v, w in zip("YUV", mk, mp, gk[3]):
+        if not torch.equal(u, v) or not torch.equal(u, w):
+            raise AssertionError(f"K14 bi: plane {c} differs")
+    ms = cuda_ms(lambda: mc_planes_cuda(*mca))
+    plain = cuda_ms(lambda: mc_planes_plain(*refs, *mca[1:]), warm=False)
+    u0, u1 = uses(slot0, slot1)
+    npx = a[0][0].numel() * 1.5
+    # operations: the separable filters of every list each cell reads
+    # (two where bi-predicted), the combine (3 a sample); bytes: both
+    # references read, the prediction written, both motions read
+    bnd, by = row("inter_mc_bi", "inter_code.cu", "ops/mc.py:141",
+                  max_abs_err(mk, mp), ms, plain,
+                  3 * npx + 24 * h8 * w8,
+                  planes_mc_ops(slot0, mv0, slot1, mv1), ["inter_mc_bi"])
+    print(f"phase K14 bi ({h8 * w8} cells: {int((u0 & ~u1).sum())} list 0, "
+          f"{int((~u0 & u1).sum())} list 1, {int((u0 & u1).sum())} bi): "
+          f"kernel planes == plain == K17's prediction, kernel {ms:.3f} ms, "
+          f"plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    rows["inter_code_bi"], _ = inter_code_phase(
+        a, k, gk, gp, "inter_code_bi", ["inter_tu_class_k2", "inter_gate",
+                                        "inter_finish", "inter_bs"])
+
+    # K15: the picture's two decision calls and every snap call
+    err, dec_calls = 0.0, [c for c in calls["decide_tiers"] if c[2] == bpic]
+    for a, k, _ in dec_calls:
+        if not k.get("has_l1"):
+            raise AssertionError("the B picture's decision ran without "
+                                 "list 1")
+        gk = tid.decide_tiers(*a, **dict(k, reference=False))
+        gp = tid.decide_tiers(*a, **dict(k, reference=True))
+        torch.cuda.synchronize()
+        for (n, _), x, y in zip(a[3], gk, gp):
+            if not all(torch.equal(u.cpu(), v.cpu()) for u, v in zip(x, y)):
+                raise AssertionError(f"K15 (B) decide tier {n}: kernel and "
+                                     "plain differ")
+            err = max(err, max_abs_err(list(x), list(y)))
+        if a is dec_calls[0][0]:
+            first = gp
+    snaps = [c for c in calls.get("snap_sads", []) if c[2] == bpic]
+    for a, k, _ in snaps:
+        gk = tid.snap_sads(*a, **dict(k, reference=False))
+        gp = tid.snap_sads(*a, **dict(k, reference=True))
+        if not all(torch.equal(x, y) for x, y in zip(gk, gp)):
+            raise AssertionError("K15 (B) snap SADs: kernel and plain differ")
+        err = max(err, max_abs_err(list(gk), list(gp)))
+    a, k, _ = dec_calls[0]
+    ms = cuda_ms(lambda: tid.decide_tiers(*a, **dict(k, reference=False)))
+    plain = cuda_ms(lambda: tid.decide_tiers(*a, **dict(k, reference=True)),
+                    reps=3, warm=False)
+    ops, nbytes, ncu = decide_call_ops(a, first, True)
+    bnd, by = row("inter_decide_bi", "inter_decide.cu",
+                  "ops/interdecide.py:157", err, ms, plain, nbytes, ops,
+                  ["inter_decide", "inter_cand_sads"], ["inter_decide"])
+    print(f"phase K15 inter decide (B picture POC 4: {len(dec_calls)} "
+          f"decision and {len(snaps)} snap calls, {ncu} CUs in the first): "
+          f"equal, kernel {ms:.3f} ms, plain {plain:.3f} ms (first call), "
+          f"bound {bnd:.4f} ms ({by})", flush=True)
+
+    # ---- 14b: the same 9 frames on the plain versions, then the timed
+    # 25-frame encode (the 9-frame kernel encode above was its warm-up)
+    kb = bencode(yuv[:9], reference=True)
+    if b"".join(e.data for e in ka) != b"".join(e.data for e in kb) or \
+            md5s(e.recon for e in ka) != md5s(e.recon for e in kb):
+        raise AssertionError("9-frame GOP-8 stream or recon: kernels and "
+                             "plain versions differ")
+    print(f"phase B kernels vs plain stream: 9 frames "
+          f"({sum(len(e.data) for e in ka)} bytes, slice types "
+          f"{''.join(e.slice_type for e in ka)}) identical, recon md5s "
+          "equal", flush=True)
+    gops = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    befs = bencode(yuv[:BFRAMES], gops=gops)
+    torch.cuda.synchronize()
+    bsecs = time.perf_counter() - t0
+    bcounts = dict(_build.launches)
+    for key in ("decide_effort1", "intra_scan_rdoq_sbh", "deblock",
+                "sao_stats", "sao_apply", "lookahead", "motion_search",
+                "inter_decide", "inter_mc", "inter_code_sbh", "sao_decide",
+                "me_bi", "inter_mc_bi", "inter_decide_bi", "inter_code_bi"):
+        n_launch = check_counts(rows[key].get("required",
+                                              rows[key]["counters"]),
+                                bcounts, "B path")
+        if key in ("me_bi", "inter_mc_bi", "inter_decide_bi",
+                   "inter_code_bi"):
+            rows[key]["launches"] = n_launch
+    btypes = "".join(e.slice_type for e in befs)
+    if btypes.count("B") < 7:
+        raise AssertionError(f"the B path coded too few B pictures: {btypes}")
+    bstream = b"".join(e.data for e in befs)
+    brec = sorted(befs, key=lambda e: e.display_idx)
+    bmse = np.mean([np.mean((e.recon.y.astype(np.float64)
+                             - f.y.astype(np.float64)) ** 2)
+                    for e, f in zip(brec, yuv)])
+    bpsnr = 10 * np.log10(255.0 ** 2 / bmse)
+    if not bpsnr > 30.0:
+        raise AssertionError(f"B path luma PSNR {bpsnr:.2f} dB <= 30 dB")
+    bframe_fps = len(befs) / bsecs
+    print(f"phase B path: {len(befs)} frames {W}x{H} (fast offline QP 27, "
+          f"SAO tier 3, GOP sizes {gops}) in {bsecs:.3f} s = "
+          f"{bframe_fps:.3f} fps on {card}; stream {len(bstream)} bytes md5 "
+          f"{hashlib.md5(bstream).hexdigest()}; luma PSNR {bpsnr:.3f} dB; "
+          f"slice types {btypes}; launches {bcounts}", flush=True)
+
+    # ---- 14c: the card decode: a first decode records K18's inputs, then
+    # a timed decode with the launch counts reset just before
+    benc_md5 = md5s(e.recon for e in brec)
+    k18_calls = []
+    k18_fn = wf.recon_inter_filter
+
+    def k18_spy(*a, **k):
+        k18_calls.append((a, k))
+        return k18_fn(*a, **k)
+
+    wf.recon_inter_filter = k18_spy
+    try:
+        HevcDecoder().decode_all(bstream)
+    finally:
+        wf.recon_inter_filter = k18_fn
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    bdec = HevcDecoder()
+    bdecoded = bdec.decode_all(bstream)
+    torch.cuda.synchronize()
+    bdsecs = time.perf_counter() - t0
+    bdcounts = dict(_build.launches)
+    bframe_decode_fps = len(bdecoded) / bdsecs
+    if bdec.fast_pictures != BFRAMES or len(bdecoded) != BFRAMES or \
+            [f.poc for f in bdecoded] != sorted(e.poc for e in befs):
+        raise AssertionError(f"B decode: {bdec.fast_pictures} of "
+                             f"{len(bdecoded)} pictures took the fast "
+                             "paths, or the output is out of display order")
+    if md5s(bdecoded) != benc_md5:
+        bad = [i for i, (x, y) in enumerate(zip(md5s(bdecoded), benc_md5))
+               if x != y]
+        raise AssertionError(f"B decode: frames {bad} differ from the "
+                             "encoder's reconstruction")
+    check_counts(["inter_mc_bi", "inter_recon", "intra_recon",
+                  "deblock_edges", "sao_apply"], bdcounts, "B decode path")
+    first4 = HevcDecoder(reference=True).decode_all(
+        b"".join(e.data for e in befs[:4]))
+    want4 = {e.poc: m for e, m in zip(brec, benc_md5)}
+    if md5s(first4) != [want4[f.poc] for f in first4] or len(first4) != 4:
+        raise AssertionError("B decode: reference=True differs on the first "
+                             "4 pictures in decode order")
+    print(f"phase B decode: {len(bdecoded)} frames {W}x{H} in "
+          f"{bdsecs:.3f} s = {bframe_decode_fps:.3f} fps on {card}; all "
+          f"{bdec.fast_pictures} through the fast paths in display order, "
+          f"md5 equal to the encoder's recon, first 4 in decode order "
+          f"(POC {[f.poc for f in first4]}) equal with reference=True; "
+          f"launches {bdcounts}", flush=True)
+    rows["inter_recon_bi"] = k18_phase(k18_calls, card, bi=True)
+    rows["inter_recon_bi"]["launches"] = bdcounts["inter_recon"]
+
+    # ---- 14d: the CLIs on the offline GOP-8 path
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        (work / "in.yuv").write_bytes(b"".join(f.tobytes()
+                                               for f in yuv[:10]))
+        argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
+                "-frms", "10", "-b", str(work / "gop8.265"), "-preset",
+                "fast", "-latency", "offline", "-qp", "27", "-fr", "30"]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = app_encoder.main(argv)
+        check_counts(rows["me_bi"]["required"]
+                     + rows["inter_mc_bi"]["required"], _build.launches,
+                     "app_encoder (offline)")
+        ccfg = app_encoder.cfg_from_args(
+            app_encoder.build_parser().parse_args(argv))
+        enc = HevcEncoder(ccfg)
+        cefs = []
+        for fr in yuv[:10]:
+            cefs += enc.encode_frame(fr)
+        cefs += enc.flush()
+        want = b"".join(e.data for e in cefs)
+        if rc != 0 or (work / "gop8.265").read_bytes() != want:
+            raise AssertionError("app_encoder -latency offline: bytes differ "
+                                 "from HevcEncoder's")
+        want_md5 = [",".join(m) for m in md5s(
+            e.recon for e in sorted(cefs, key=lambda e: e.display_idx))]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = app_decoder.main(["-b", str(work / "gop8.265"), "-md5", "1"])
+        check_counts(["inter_mc_bi", "inter_recon"], _build.launches,
+                     "app_decoder (offline)")
+        dec_lines = [ln.split()[3] for ln in out.getvalue().splitlines()
+                     if ln.startswith("POC ")]
+        if rc != 0 or dec_lines != want_md5:
+            raise AssertionError("app_decoder -md5 1 (offline): lines differ "
+                                 "from the encoder's md5s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase CLI B: app_encoder -preset fast -latency offline 10 frames "
+          f"({len(want)} bytes, slice types "
+          f"{''.join(e.slice_type for e in cefs)}) == HevcEncoder, "
+          "app_decoder -md5 1 == encoder md5s", flush=True)
+    return dict(bframe_fps=bframe_fps, bframe_decode_fps=bframe_decode_fps)
 
 
 def main() -> int:
@@ -1639,9 +2065,13 @@ def main() -> int:
           f" 4 frames ({len(want)} bytes) == HevcEncoder, app_decoder -md5 1"
           " == encoder md5s", flush=True)
 
+    # ---- phase 14: B pictures (the offline GOP-8, fast, QP 27)
+    bfps = bframe_path(yuv, card, check_counts, rows)
+
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
-                "intra_recon") + INTER_ROWS + ("inter_recon",) + FAST_ROWS:
+                "intra_recon") + INTER_ROWS + ("inter_recon",) + FAST_ROWS \
+            + B_ROWS:
         r = rows[key]
         r.pop("counters")
         r.pop("required", None)
@@ -1653,7 +2083,7 @@ def main() -> int:
                       "inter_decode_fps": inter_decode_fps,
                       "fast_inter_fps": fast_inter_fps,
                       "fast_inter_decode_fps": fast_inter_decode_fps,
-                      "fast_intra_fps": fast_intra_fps}))
+                      "fast_intra_fps": fast_intra_fps, **bfps}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,10 +9,11 @@ tooling that parses them keeps working.
 A copy of ks265codec_tpu/cli/app_encoder.py on the port's HevcEncoder,
 with one addition: `-device` (default: the CUDA card; `-device cpu` runs
 the plain PyTorch versions on the CPU). Configurations the port does not
-cover yet raise NotImplementedError naming what is missing (the flag
-defaults select B pictures: pass `-iper 1` for all-intra at any preset,
-or `-latency zerolatency -iper 0` for low-delay P at ultrafast to fast;
-the default `-rdoq 1` runs RDOQ in both).
+cover yet raise NotImplementedError naming what is missing. At the
+presets ultrafast to fast the flag defaults (`-latency offline -bframes
+7 -iper 64`) encode hierarchical GOP-8 B pictures, `-latency
+livestreaming` GOP-4, `-latency zerolatency -iper 0` low-delay P; `-iper
+1` encodes all-intra at any preset; the default `-rdoq 1` runs RDOQ.
 """
 
 from __future__ import annotations

@@ -1,13 +1,14 @@
-// K17 — inter coding of one P picture, replacing
+// K17 — inter coding of one P or B picture, replacing
 // ks265codec_tpu/ops/intercode.py::_inter_code_core (`_code_tu_class`,
 // the chroma branch, the zero-forcing gate, the final levels and recon,
-// the boundary strengths) for uni-prediction with SAO and cu_qp_delta
-// off. The seeded intra scan and the deblocking filter are the K6 and K7
+// the boundary strengths) without weighted prediction or cu_qp_delta.
+// The seeded intra scan and the deblocking filter are the K6 and K7
 // launches of csrc/intra_scan.cu and csrc/deblock.cu.
 //
 //   ks_inter_mc       K14: the whole picture's prediction, one thread
 //                     block per 8x8 cell (its luma and two 4x4 chroma
-//                     cells) from the cell's motion (mc.cuh);
+//                     cells) from the cell's motion in one or two lists
+//                     (mc.cuh's `ks_mc_pred`; list 1 a template argument);
 //   ks_inter_tu_class one thread block per TU of a size class: residual
 //                     against the prediction, forward transform, inter
 //                     deadzone quantisation and the signs through K2's
@@ -44,28 +45,29 @@ struct TuScratch {
   int flag;
 };
 
+template <bool kL1>
 __global__ void mc_kernel(const uint8_t* ry, const uint8_t* rcb,
-                          const uint8_t* rcr, const int* slot,
-                          const int* mv, uint8_t* py, uint8_t* pcb,
-                          uint8_t* pcr, int w8, int H, int W, int pic_w,
-                          int pic_h) {
+                          const uint8_t* rcr, const int* slot0,
+                          const int* mv0, const int* slot1, const int* mv1,
+                          uint8_t* py, uint8_t* pcb, uint8_t* pcr, int w8,
+                          int H, int W, int pic_w, int pic_h) {
   const int cell = blockIdx.x;
   const int r = cell / w8, c = cell % w8;
-  const int s = max(slot[cell], 0);
-  const int mvx = mv[2 * cell], mvy = mv[2 * cell + 1];
+  const int s0 = slot0[cell], mx0 = mv0[2 * cell], my0 = mv0[2 * cell + 1];
+  const int s1 = kL1 ? slot1[cell] : -1;
+  const int mx1 = kL1 ? mv1[2 * cell] : 0, my1 = kL1 ? mv1[2 * cell + 1] : 0;
   const int t = threadIdx.x;
   if (t < 64) {
     const int y = t / 8, x = t % 8;
-    py[(size_t)(r * 8 + y) * W + c * 8 + x] = (uint8_t)ks_mc_uni(
-        ks_mc_sample(ry + (size_t)s * H * W, W, pic_w, pic_h, r * 8, c * 8,
-                     mvx, mvy, true, y, x));
+    py[(size_t)(r * 8 + y) * W + c * 8 + x] = (uint8_t)ks_mc_pred<kL1>(
+        ry, (size_t)H * W, W, pic_w, pic_h, r * 8, c * 8, s0, mx0, my0, s1,
+        mx1, my1, true, y, x);
   } else if (t < 96) {
     const int k = t - 64, pl = k / 16, y = (k % 16) / 4, x = k % 4;
-    const uint8_t* ref = (pl ? rcr : rcb) + (size_t)s * (H / 2) * (W / 2);
     uint8_t* out = pl ? pcr : pcb;
-    out[(size_t)(r * 4 + y) * (W / 2) + c * 4 + x] = (uint8_t)ks_mc_uni(
-        ks_mc_sample(ref, W / 2, pic_w / 2, pic_h / 2, r * 4, c * 4, mvx,
-                     mvy, false, y, x));
+    out[(size_t)(r * 4 + y) * (W / 2) + c * 4 + x] = (uint8_t)ks_mc_pred<kL1>(
+        pl ? rcr : rcb, (size_t)(H / 2) * (W / 2), W / 2, pic_w / 2,
+        pic_h / 2, r * 4, c * 4, s0, mx0, my0, s1, mx1, my1, false, y, x);
   }
 }
 
@@ -202,15 +204,20 @@ __global__ void bs_kernel(const uint8_t* cbf4, const uint8_t* e2v,
 
 }  // namespace
 
+// slot1 / mv1 are read only with has_l1 (a B picture); the uni-predicted
+// instantiation carries no list-1 code.
 extern "C" int ks_inter_mc(const void* ry, const void* rcb, const void* rcr,
-                           const void* slot, const void* mv, void* py,
+                           const void* slot0, const void* mv0,
+                           const void* slot1, const void* mv1, void* py,
                            void* pcb, void* pcr, int h8, int w8, int H,
-                           int W, int pic_w, int pic_h, void* stream) {
+                           int W, int pic_w, int pic_h, int has_l1,
+                           void* stream) {
   if (h8 <= 0 || w8 <= 0) return 0;
-  mc_kernel<<<h8 * w8, 96, 0, (cudaStream_t)stream>>>(
+  auto kernel = has_l1 ? mc_kernel<true> : mc_kernel<false>;
+  kernel<<<h8 * w8, 96, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)ry, (const uint8_t*)rcb, (const uint8_t*)rcr,
-      (const int*)slot, (const int*)mv, (uint8_t*)py, (uint8_t*)pcb,
-      (uint8_t*)pcr, w8, H, W, pic_w, pic_h);
+      (const int*)slot0, (const int*)mv0, (const int*)slot1, (const int*)mv1,
+      (uint8_t*)py, (uint8_t*)pcb, (uint8_t*)pcr, w8, H, W, pic_w, pic_h);
   return (int)cudaGetLastError();
 }
 

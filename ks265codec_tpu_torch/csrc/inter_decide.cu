@@ -1,8 +1,12 @@
 // K15 — inter mode decision per CU tier, replacing
 // ks265codec_tpu/ops/interdecide.py::_tier_core (via
 // `decide_tiers_fused_jit` / `_tiers_fused_core`, with `_rough_cu` and
-// `_rough_tu_inter`) and `_cand_sads_core` (via `snap_sads_fused_jit`),
-// for uni-prediction.
+// `_rough_tu_inter`) and `_cand_sads_core` (via `snap_sads_fused_jit`).
+// In B pictures (template argument kL1) every candidate and ME record
+// carries both lists' slots and motions and predicts through mc.cuh's
+// `ks_mc_pred` (both lists averaged, or the one list whose slot is >= 0);
+// an ME record is valid where either slot is >= 0. The P instantiation
+// carries no list-1 code.
 //
 // ks_inter_decide_tier: one thread block per CU of the tier. The block
 // scores every merge candidate by the luma SAD of its MC prediction (the
@@ -19,7 +23,8 @@
 // every TU quantises to zero.
 // ks_inter_cand_sads: one thread block per (CU, candidate), the SAD.
 //
-// Bound: per CU and candidate an n x n MC (8 x 8 taps a sample) and SAD,
+// Bound: per CU and candidate an n x n MC (8 x 8 taps a sample, twice
+// where bi-predicted) and SAD,
 // per costed motion the transforms (4 n multiply-adds a sample, matrix
 // form); operations bound it, not the planes' bytes.
 #include "mc.cuh"
@@ -42,17 +47,36 @@ struct Planes {
   int H, W, pic_w, pic_h;
 };
 
-// Luma SAD of the n x n block at (x, y) predicted with (slot, mv).
-__device__ int cand_sad(const Planes& p, int slot, int mvx, int mvy, int x,
-                        int y, int n, Scratch& s) {
+// One motion of list 0 and (kL1) list 1.
+struct Motion {
+  int s0, mx0, my0, s1, mx1, my1;
+};
+
+template <bool kL1>
+__device__ __forceinline__ Motion motion(const int* s0, const int* mv0,
+                                         const int* s1, const int* mv1,
+                                         size_t i) {
+  Motion m{s0[i], mv0[2 * i], mv0[2 * i + 1], -1, 0, 0};
+  if (kL1) {
+    m.s1 = s1[i];
+    m.mx1 = mv1[2 * i];
+    m.my1 = mv1[2 * i + 1];
+  }
+  return m;
+}
+
+// Luma SAD of the n x n block at (x, y) predicted with motion m.
+template <bool kL1>
+__device__ int cand_sad(const Planes& p, const Motion& m, int x, int y,
+                        int n, Scratch& s) {
   if (threadIdx.x == 0) s.isum = 0;
   __syncthreads();
-  const uint8_t* ref = p.ref[0] + (size_t)max(slot, 0) * p.H * p.W;
   int part = 0;
   for (int q = threadIdx.x; q < n * n; q += blockDim.x) {
     const int yy = q / n, xx = q % n;
-    const int pr = ks_mc_uni(ks_mc_sample(ref, p.W, p.pic_w, p.pic_h, y, x,
-                                          mvx, mvy, true, yy, xx));
+    const int pr = ks_mc_pred<kL1>(p.ref[0], (size_t)p.H * p.W, p.W,
+                                   p.pic_w, p.pic_h, y, x, m.s0, m.mx0,
+                                   m.my0, m.s1, m.mx1, m.my1, true, yy, xx);
     part += abs((int)p.src[0][(size_t)(y + yy) * p.W + x + xx] - pr);
   }
   atomicAdd(&s.isum, part);
@@ -91,9 +115,10 @@ __device__ bool rough_tu(const int* tab, const float* btab, int t, int qp,
   return !any;
 }
 
-// Rough (D, bits, zero) of coding motion (slot, mv) at CU size n.
+// Rough (D, bits, zero) of coding motion mo at CU size n.
+template <bool kL1>
 __device__ bool rough_cu(const Planes& p, const int* tab, const float* btab,
-                         int slot, int mvx, int mvy, int x, int y, int n,
+                         const Motion& mo, int x, int y, int n,
                          const int* qps, float* D, float* R, Scratch& s) {
   bool zero = true;
   for (int c = 0; c < 3; c++) {
@@ -103,14 +128,14 @@ __device__ bool rough_cu(const Planes& p, const int* tab, const float* btab,
     const int pw = c == 0 ? p.pic_w : p.pic_w / 2;
     const int ph = c == 0 ? p.pic_h : p.pic_h / 2;
     const int ox = c == 0 ? x : x >> 1, oy = c == 0 ? y : y >> 1;
-    const uint8_t* ref = p.ref[c] + (size_t)max(slot, 0) * h * w;
     float d = 0.f, b = 0.f;
     for (int k = 0; k < (m / t) * (m / t); k++) {
       const int ty = (k / (m / t)) * t, tx = (k % (m / t)) * t;
       for (int q = threadIdx.x; q < t * t; q += blockDim.x) {
         const int yy = ty + q / t, xx = tx + q % t;
-        const int pr = ks_mc_uni(ks_mc_sample(ref, w, pw, ph, oy, ox, mvx,
-                                              mvy, c == 0, yy, xx));
+        const int pr = ks_mc_pred<kL1>(p.ref[c], (size_t)h * w, w, pw, ph,
+                                       oy, ox, mo.s0, mo.mx0, mo.my0, mo.s1,
+                                       mo.mx1, mo.my1, c == 0, yy, xx);
         s.res[q] = (int)p.src[c][(size_t)(oy + yy) * w + ox + xx] - pr;
       }
       __syncthreads();
@@ -124,13 +149,14 @@ __device__ bool rough_cu(const Planes& p, const int* tab, const float* btab,
   return zero;
 }
 
+template <bool kL1>
 __global__ void decide_tier_kernel(
     Planes p, const int* xs, const int* ys, const int* cs0, const int* cmv0,
-    const uint8_t* cvalid, const int* ms0, const int* mmv0,
-    const float* me_bits, const float* icost, const int* qp, const int* qpcb,
-    const int* qpcr, const float* lam, const float* lams, int* choice,
-    int* bidx, float* cost, const int* tab, const float* btab, int B, int C,
-    int n, int zero_only) {
+    const int* cs1, const int* cmv1, const uint8_t* cvalid, const int* ms0,
+    const int* mmv0, const int* ms1, const int* mmv1, const float* me_bits,
+    const float* icost, const int* qp, const int* qpcb, const int* qpcr,
+    const float* lam, const float* lams, int* choice, int* bidx, float* cost,
+    const int* tab, const float* btab, int B, int C, int n, int zero_only) {
   __shared__ Scratch s;
   const int b = blockIdx.x;
   const int x = xs[b], y = ys[b];
@@ -140,9 +166,9 @@ __global__ void decide_tier_kernel(
     for (int j = 0; j < C && first < 0; j++) {
       if (!cvalid[(size_t)j * B + b]) continue;
       float D, R;
-      const int* mv = cmv0 + ((size_t)j * B + b) * 2;
-      if (rough_cu(p, tab, btab, cs0[(size_t)j * B + b], mv[0], mv[1], x, y,
-                   n, qps, &D, &R, s))
+      if (rough_cu<kL1>(p, tab, btab,
+                        motion<kL1>(cs0, cmv0, cs1, cmv1, (size_t)j * B + b),
+                        x, y, n, qps, &D, &R, s))
         first = j;
     }
     if (threadIdx.x == 0) {
@@ -156,8 +182,8 @@ __global__ void decide_tier_kernel(
   bool any_valid = false;
   for (int j = 0; j < C; j++) {
     const size_t i = (size_t)j * B + b;
-    const int* mv = cmv0 + i * 2;
-    const int sad = cand_sad(p, cs0[i], mv[0], mv[1], x, y, n, s);
+    const int sad =
+        cand_sad<kL1>(p, motion<kL1>(cs0, cmv0, cs1, cmv1, i), x, y, n, s);
     const float c = cvalid[i] ? __fmaf_rn(lams[b], 2.0f + (float)j,
                                           (float)sad)
                               : INFINITY;
@@ -167,18 +193,19 @@ __global__ void decide_tier_kernel(
       best = j;
     }
   }
-  const size_t bi = (size_t)best * B + b;
+  Motion bm = motion<kL1>(cs0, cmv0, cs1, cmv1, (size_t)best * B + b);
+  if (!any_valid) bm.s0 = bm.s1 = -1;
+  const Motion me = motion<kL1>(ms0, mmv0, ms1, mmv1, b);
   float Dm, Rm, De, Re;
-  rough_cu(p, tab, btab, any_valid ? cs0[bi] : -1, cmv0[bi * 2],
-           cmv0[bi * 2 + 1], x, y, n, qps, &Dm, &Rm, s);
-  rough_cu(p, tab, btab, ms0[b], mmv0[2 * b], mmv0[2 * b + 1], x, y, n, qps,
-           &De, &Re, s);
+  rough_cu<kL1>(p, tab, btab, bm, x, y, n, qps, &Dm, &Rm, s);
+  rough_cu<kL1>(p, tab, btab, me, x, y, n, qps, &De, &Re, s);
   if (threadIdx.x == 0) {
     const float l = lam[b];
     float costs[3];
     costs[0] = any_valid ? __fmaf_rn(l, (Rm + 2.0f) + (float)best, Dm)
                          : INFINITY;
-    costs[1] = ms0[b] >= 0 ? __fmaf_rn(l, Re + me_bits[b], De) : INFINITY;
+    costs[1] = ms0[b] >= 0 || ms1[b] >= 0 ? __fmaf_rn(l, Re + me_bits[b], De)
+                                          : INFINITY;
     costs[2] = icost[b] < INFINITY ? __fmaf_rn(l, 1.5f, icost[b])
                                    : INFINITY;
     int ch = 0;
@@ -190,14 +217,16 @@ __global__ void decide_tier_kernel(
   }
 }
 
+template <bool kL1>
 __global__ void cand_sads_kernel(Planes p, const int* xs, const int* ys,
-                                 const int* cs0, const int* cmv0, float* out,
+                                 const int* cs0, const int* cmv0,
+                                 const int* cs1, const int* cmv1, float* out,
                                  int B, int n) {
   __shared__ Scratch s;
   const int b = blockIdx.x, j = blockIdx.y;
   const size_t i = (size_t)j * B + b;
-  const int sad = cand_sad(p, cs0[i], cmv0[2 * i], cmv0[2 * i + 1], xs[b],
-                           ys[b], n, s);
+  const int sad = cand_sad<kL1>(p, motion<kL1>(cs0, cmv0, cs1, cmv1, i),
+                                xs[b], ys[b], n, s);
   if (threadIdx.x == 0) out[i] = (float)sad;
 }
 
@@ -220,20 +249,24 @@ Planes make_planes(const void* sy, const void* scb, const void* scr,
 
 }  // namespace
 
+// cs1 / cmv1 / ms1 / mmv1 are read only with has_l1 (B pictures).
 extern "C" int ks_inter_decide_tier(
     const void* sy, const void* scb, const void* scr, const void* ry,
     const void* rcb, const void* rcr, const void* xs, const void* ys,
-    const void* cs0, const void* cmv0, const void* cvalid, const void* ms0,
-    const void* mmv0, const void* me_bits, const void* icost, const void* qp,
+    const void* cs0, const void* cmv0, const void* cs1, const void* cmv1,
+    const void* cvalid, const void* ms0, const void* mmv0, const void* ms1,
+    const void* mmv1, const void* me_bits, const void* icost, const void* qp,
     const void* qpcb, const void* qpcr, const void* lam, const void* lams,
     void* choice, void* bidx, void* cost, const void* tab, const void* btab,
     int B, int C, int n, int H, int W, int pic_w, int pic_h, int zero_only,
-    void* stream) {
+    int has_l1, void* stream) {
   if (B <= 0) return 0;
-  decide_tier_kernel<<<B, 256, 0, (cudaStream_t)stream>>>(
+  auto kernel = has_l1 ? decide_tier_kernel<true> : decide_tier_kernel<false>;
+  kernel<<<B, 256, 0, (cudaStream_t)stream>>>(
       make_planes(sy, scb, scr, ry, rcb, rcr, H, W, pic_w, pic_h),
       (const int*)xs, (const int*)ys, (const int*)cs0, (const int*)cmv0,
-      (const uint8_t*)cvalid, (const int*)ms0, (const int*)mmv0,
+      (const int*)cs1, (const int*)cmv1, (const uint8_t*)cvalid,
+      (const int*)ms0, (const int*)mmv0, (const int*)ms1, (const int*)mmv1,
       (const float*)me_bits, (const float*)icost, (const int*)qp,
       (const int*)qpcb, (const int*)qpcr, (const float*)lam,
       (const float*)lams, (int*)choice, (int*)bidx, (float*)cost,
@@ -244,13 +277,16 @@ extern "C" int ks_inter_decide_tier(
 extern "C" int ks_inter_cand_sads(const void* sy, const void* ry,
                                   const void* xs, const void* ys,
                                   const void* cs0, const void* cmv0,
+                                  const void* cs1, const void* cmv1,
                                   void* out, int B, int C, int n, int H,
-                                  int W, int pic_w, int pic_h, void* stream) {
+                                  int W, int pic_w, int pic_h, int has_l1,
+                                  void* stream) {
   if (B <= 0 || C <= 0) return 0;
-  cand_sads_kernel<<<dim3(B, C), 256, 0, (cudaStream_t)stream>>>(
+  auto kernel = has_l1 ? cand_sads_kernel<true> : cand_sads_kernel<false>;
+  kernel<<<dim3(B, C), 256, 0, (cudaStream_t)stream>>>(
       make_planes(sy, nullptr, nullptr, ry, nullptr, nullptr, H, W, pic_w,
                   pic_h),
       (const int*)xs, (const int*)ys, (const int*)cs0, (const int*)cmv0,
-      (float*)out, B, n);
+      (const int*)cs1, (const int*)cmv1, (float*)out, B, n);
   return (int)cudaGetLastError();
 }

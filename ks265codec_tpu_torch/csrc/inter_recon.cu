@@ -1,8 +1,9 @@
-// K18 — the residual of a decoded P picture's inter CUs, replacing
+// K18 — the residual of a decoded P or B picture's inter CUs, replacing
 // ks265codec_tpu/ops/wavefront.py::_dense_residual inside
 // `_recon_inter_filter_core`. The rest of K18 is launches of ported
-// kernels: K14 MC before (`ks_inter_mc`, whose prediction planes this
-// kernel updates in place), then K11 for the intra CUs, K7 and K9.
+// kernels: K14 MC before (`ks_inter_mc` over one list or, in B pictures,
+// both; its prediction planes this kernel updates in place), then K11
+// for the intra CUs, K7 and K9.
 //
 // The reference inverse-transforms every aligned tile of every size class
 // densely and selects per sample (gathers are slow on a TPU). Here the

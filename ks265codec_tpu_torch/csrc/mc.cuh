@@ -5,8 +5,10 @@
 // weight 64, so one `>> 6` after the vertical pass gives every fx / fy
 // case exactly, as the plain version (ops/mc.py) computes it. Reference
 // samples are clamped per sample to the coded picture (pic_w x pic_h).
-// Used by K13 (csrc/me.cu), K15 (csrc/inter_decide.cu) and K17
-// (csrc/inter_code.cu).
+// The default combine of spec 8.5.4.2.5.2 (`_combine` without weights)
+// takes (p + 32) >> 6 of one list or (p0 + p1 + 64) >> 7 of both. Used by
+// K13 (csrc/me.cu), K15 (csrc/inter_decide.cu), K17 (csrc/inter_code.cu)
+// and, through `ks_inter_mc`, K18.
 #pragma once
 
 #include "common.cuh"
@@ -47,4 +49,34 @@ static __device__ int ks_mc_sample(const uint8_t* ref, int stride, int pic_w,
 // Default uni-prediction combine of a 14-bit sample to 8 bits.
 static __device__ __forceinline__ int ks_mc_uni(int p) {
   return ks_clip3(0, 255, (p + 32) >> 6);
+}
+
+// Default bi-prediction combine of two 14-bit samples to 8 bits.
+static __device__ __forceinline__ int ks_mc_bi(int p0, int p1) {
+  return ks_clip3(0, 255, (p0 + p1 + 64) >> 7);
+}
+
+// 8-bit prediction of sample (y, x) of the block at (by, bx) from a
+// reference stack `base` (`plane` samples per reference, row stride
+// `stride`) with the list 0 motion (s0, mx0, my0) and, where kL1, the list
+// 1 motion (s1, mx1, my1), as `_combine` picks it: both slots >= 0 average,
+// a slot >= 0 of list 0 alone is list 0's, otherwise list 1's (slot -1
+// reads reference 0). Without kL1, list 0's at slot max(s0, 0).
+template <bool kL1>
+static __device__ __forceinline__ int ks_mc_pred(
+    const uint8_t* base, size_t plane, int stride, int pic_w, int pic_h,
+    int by, int bx, int s0, int mx0, int my0, int s1, int mx1, int my1,
+    bool luma, int y, int x) {
+  if (kL1 && s1 >= 0 && s0 >= 0)
+    return ks_mc_bi(
+        ks_mc_sample(base + (size_t)s0 * plane, stride, pic_w, pic_h, by, bx,
+                     mx0, my0, luma, y, x),
+        ks_mc_sample(base + (size_t)s1 * plane, stride, pic_w, pic_h, by, bx,
+                     mx1, my1, luma, y, x));
+  if (!kL1 || s0 >= 0)
+    return ks_mc_uni(ks_mc_sample(base + (size_t)max(s0, 0) * plane, stride,
+                                  pic_w, pic_h, by, bx, mx0, my0, luma, y,
+                                  x));
+  return ks_mc_uni(ks_mc_sample(base + (size_t)max(s1, 0) * plane, stride,
+                                pic_w, pic_h, by, bx, mx1, my1, luma, y, x));
 }

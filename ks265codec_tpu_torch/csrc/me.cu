@@ -1,7 +1,8 @@
 // K13 — pyramid motion estimation for 8x8 blocks, replacing
-// ks265codec_tpu/ops/me2.py::_me_fused_core with bi=False (`_down2`,
-// `_dense_l2`, `_med3`, `_refine3`, `_subpel8`, and the interpolation of
-// ops/subpel.py::_interp_cand, here the MC device function of mc.cuh).
+// ks265codec_tpu/ops/me2.py::_me_fused_core (`_down2`, `_dense_l2`,
+// `_med3`, `_refine3`, `_subpel8`, with bi=True `_bi_cost8` and the
+// direction decision, and the interpolation of ops/subpel.py::
+// _interp_cand, here the MC device functions of mc.cuh).
 //
 // One launch per level, each one thread block per block of that level:
 //   ks_me_down2     the 2x2 box downsample of the picture and the
@@ -16,7 +17,13 @@
 //   ks_me_refine3   +-3 around twice the coarser winner (half, then full
 //                   resolution), 49 SADs, windows clamped to the picture;
 //   ks_me_subpel8   49 quarter-pel candidates: the MC filter, SATD8 and
-//                   the mvd rate fma(log(1 + d), 2/ln2, ...) in float32.
+//                   the mvd rate fma(log(1 + d), 2/ln2, ...) in float32;
+//   ks_me_bi_cost8  B pictures, after the two lists' searches: one thread
+//                   per sample predicts from both winners (ks_mc_sample,
+//                   ks_mc_bi) into shared memory, one thread takes the
+//                   SATD8 of the residual and writes dir8 / sad8 from the
+//                   float32 comparison of sbi + 8 lam against the two
+//                   lists' costs (one rounding: 8 lam is exact).
 // Every argmin is a min-reduction of a packed (cost, index) key, so ties
 // go to the first index as in the reference; float costs are >= 0, so
 // their bit patterns order as integers.
@@ -24,7 +31,9 @@
 // Bound: the dense search is 1089 offsets x 16 samples per 4x4 quarter
 // block, about 67 M |a - b| per 720p picture and reference; the
 // quarter-pel stage 49 x (8x8 interpolation + SATD8) per 8x8 block; all
-// far above the ~2 MB of plane traffic, so operations bound it.
+// far above the ~2 MB of plane traffic, so operations bound it. The bi
+// cost adds two 8-tap predictions and a SATD8 per 8x8 block, about 1/40
+// of the quarter-pel stage.
 #include "mc.cuh"
 
 namespace {
@@ -218,6 +227,36 @@ __global__ void subpel8_kernel(const uint8_t* planes, const int* mv_f,
   }
 }
 
+// The bi-prediction cost of each 8x8 block (`_bi_cost8`) and its
+// direction: planes (3, H, W) = picture, L0[0], L1[0]; mv_q (2, nby, nbx,
+// 2) and cost (2, nby, nbx) the two lists' winners.
+__global__ void bi_cost8_kernel(const uint8_t* planes, const int* mv_q,
+                                const float* cost, int8_t* dir8,
+                                float* sad8, int H, int W, int pic_w,
+                                int pic_h, float lam) {
+  __shared__ int d[64];
+  const int nbx = W / 8, nb = (H / 8) * nbx;
+  const int b = blockIdx.x, by = b / nbx, bx = b % nbx;
+  const int y = threadIdx.x / 8, x = threadIdx.x % 8;
+  const int* m0 = mv_q + 2 * (size_t)b;
+  const int* m1 = mv_q + 2 * ((size_t)nb + b);
+  const size_t plane = (size_t)H * W;
+  const int p0 = ks_mc_sample(planes + plane, W, pic_w, pic_h, by * 8,
+                              bx * 8, m0[0], m0[1], true, y, x);
+  const int p1 = ks_mc_sample(planes + 2 * plane, W, pic_w, pic_h, by * 8,
+                              bx * 8, m1[0], m1[1], true, y, x);
+  d[threadIdx.x] = (int)planes[(size_t)(by * 8 + y) * W + bx * 8 + x] -
+                   ks_mc_bi(p0, p1);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const float bb = __fadd_rn((float)ks_satd8(d), __fmul_rn(lam, 8.0f));
+    const float c0 = cost[b], c1 = cost[nb + b];
+    const float best_uni = fminf(c0, c1);
+    dir8[b] = (int8_t)(bb < best_uni ? 2 : (c1 < c0 ? 1 : 0));
+    sad8[b] = fminf(best_uni, bb);
+  }
+}
+
 }  // namespace
 
 // planes (F, h, w) uint8 -> (F, h/2, w/2).
@@ -269,5 +308,19 @@ extern "C" int ks_me_subpel8(const void* planes, const void* mv_f, void* mv_q,
                    (cudaStream_t)stream>>>(
       (const uint8_t*)planes, (const int*)mv_f, (int*)mv_q, (float*)cost,
       (const float*)logtab, H, W, pic_w, pic_h, lam);
+  return (int)cudaGetLastError();
+}
+
+// planes (3, H, W): picture, L0[0], L1[0]; mv_q / cost: ks_me_subpel8's
+// outputs for R = 2; dir8 (H/8, W/8) int8, sad8 float32.
+extern "C" int ks_me_bi_cost8(const void* planes, const void* mv_q,
+                              const void* cost, void* dir8, void* sad8,
+                              int H, int W, int pic_w, int pic_h, float lam,
+                              void* stream) {
+  const int nb = (H / 8) * (W / 8);
+  if (nb <= 0) return 0;
+  bi_cost8_kernel<<<nb, 64, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)planes, (const int*)mv_q, (const float*)cost,
+      (int8_t*)dir8, (float*)sad8, H, W, pic_w, pic_h, lam);
   return (int)cudaGetLastError();
 }

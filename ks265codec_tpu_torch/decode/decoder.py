@@ -9,13 +9,14 @@ fills the decision maps and dense level planes, then
   2. ops/deblock.py     deblocking with the parsed bS and QP maps (K7),
   3. ops/saoapply.py    SAO with the parsed per-CTB parameters (K9),
 on the decoder's device; the planes stay there until a consumer reads them.
-The P fast path (`_materialize_fast_inter`) reconstructs a parsed P
-picture the same way through K18 (decode/interfast.py,
-ops/wavefront.py::recon_inter_filter: K14 MC, the inter TUs' residual, K11
-over the intra CUs, K7, K9). Pictures outside the fast paths' coverage
-take the scalar walk and the host filters (decode/filters.py), except
-P pictures on the card, which raise NotImplementedError, as B slices and
-P slices with explicit weighted prediction do on every device.
+The inter fast path (`_materialize_fast_inter`) reconstructs a parsed P
+or B picture the same way through K18 (decode/interfast.py,
+ops/wavefront.py::recon_inter_filter: K14 MC from one or both lists, the
+inter TUs' residual, K11 over the intra CUs, K7, K9). Pictures outside
+the fast paths' coverage take the scalar walk and the host filters
+(decode/filters.py), except P and B pictures on the card, which raise
+NotImplementedError, as slices with explicit weighted prediction do on
+every device.
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ from .. import resolve_device
 from ..bitstream.nal import (NalType, is_idr, is_irap, is_rasl, is_vcl,
                              parse_nals)
 from ..hevc.params import PPS, SPS, parse_pps, parse_sps, parse_vps
-from ..hevc.slicehdr import B_SLICE, I_SLICE, SliceHeader, \
-    parse_slice_header
+from ..hevc.slicehdr import I_SLICE, SliceHeader, parse_slice_header
 from ..utils.yuv import YUVFrame
 from .filters import deblock_frame, sao_frame
 from .slice_dec import FrameState, SliceDecoder
@@ -482,14 +482,12 @@ class HevcDecoder:
         the standard 64/8 CTB geometry, no PCM/scaling/TS/bypass/CIP.
         Syntax outside coverage aborts per-CU and falls back. Without the
         native host library the coder raises RuntimeError, as the
-        encoder's does: the fast path is the device path. A P slice
-        outside the P fast path's coverage raises NotImplementedError on
-        any device but the CPU, whose decoder takes the scalar walk."""
+        encoder's does: the fast path is the device path. A P or B slice
+        outside the inter fast path's coverage raises NotImplementedError
+        on any device but the CPU, whose decoder takes the scalar walk."""
         if getattr(self, "_wf_coder", None) is None:
             from ..ops.wavefront import WavefrontIntraCoder
             self._wf_coder = WavefrontIntraCoder()
-        if hdr.slice_type == B_SLICE:
-            raise NotImplementedError("B slices in the decoder (slice 6)")
         ok = (sps.max_transform_hierarchy_depth_intra == 0
               and sps.log2_ctb == 6 and sps.log2_min_cb == 3
               and sps.log2_max_tb == 5
@@ -504,16 +502,16 @@ class HevcDecoder:
             return ok
         from .interfast import _wp_tables
         _wp_tables(hdr)
-        # P coverage (the reference's gates): single-tile pictures; the
+        # P/B coverage (the reference's gates): single-tile pictures; the
         # chroma residual reads one QP per 4x4 chroma tile, so
         # quantization groups must be >= 16 luma samples. PU/TU shapes
         # outside the fast path abort per slice during the parse.
         gaps = [name for bad, name in (
-            (pps.tiles_enabled, "tiles in P pictures"),
+            (pps.tiles_enabled, "tiles in P/B pictures"),
             (pps.cu_qp_delta_enabled
              and sps.log2_ctb - pps.diff_cu_qp_delta_depth < 4,
-             "quantization groups < 16 in P pictures"),
-            (not ok, "P pictures outside the fast path's geometry (TU = "
+             "quantization groups < 16 in P/B pictures"),
+            (not ok, "P/B pictures outside the fast path's geometry (TU = "
              "CU, 64x64 CTBs, 8x8 CUs, 8 bits, no PCM, scaling lists, "
              "transform skip, bypass or constrained intra)")) if bad]
         if gaps and self.device.type != "cpu":
@@ -616,7 +614,7 @@ class HevcDecoder:
 
     def _materialize_fast_inter(self, fs, sps, pps, hdr, ref_lists,
                                 final: bool) -> None:
-        """P twin of _materialize_fast: K18 on the decoder's device. With
+        """P/B twin of _materialize_fast: K18 on the decoder's device. With
         the whole picture fast-parsed (final) the filters run there too
         and the planes stay on the device; a partial picture (another
         slice joins) reconstructs without in-loop filters and lands in the

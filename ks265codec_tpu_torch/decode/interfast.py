@@ -1,13 +1,13 @@
-"""Decoder fast path for P pictures: host-side assembly around K18
+"""Decoder fast path for P and B pictures: host-side assembly around K18
 (ops/wavefront.py::recon_inter_filter).
 
 The port's rewrite of ks265codec_tpu/decode/interfast.py. For streams
 inside the fast path's coverage (TU == CU, PUs of at least 8x8 per
 dimension, checked by slice_dec's FastPathAbort gates; everything the
 encoder writes) the whole picture reconstructs on the decoder's device
-from the parsed fields: K14 MC from the per-8x8-cell motion, the inter
-TUs' residual, the intra CUs over it (K11), K7 and K9. B pictures and
-explicit weighted prediction are not ported and raise.
+from the parsed fields: K14 MC from the per-8x8-cell motion of one or
+both lists, the inter TUs' residual, the intra CUs over it (K11), K7 and
+K9. Explicit weighted prediction is not ported and raises.
 """
 
 from __future__ import annotations
@@ -51,11 +51,11 @@ def _ref_stacks(uniq, dev):
 
 
 def _wp_tables(hdr):
-    """Explicit weighted prediction is not ported: a P slice that carries
+    """Explicit weighted prediction is not ported: a slice that carries
     weights raises (the decoder's `_fast_eligible` asks)."""
     if hdr.weights is not None:
         raise NotImplementedError("explicit weighted prediction in the "
-                                  "decoder (slice 6)")
+                                  "decoder (slice 7)")
 
 
 def _intra_sched(coder, fs, sps, pps, hdr, log2m8, intra8):
@@ -78,7 +78,7 @@ def _intra_sched(coder, fs, sps, pps, hdr, log2m8, intra8):
 
 def recon_inter_picture(wf_coder, fs, sps, pps, hdr, ref_lists, sao_params,
                         dev, reference: bool = False):
-    """Reconstruction of a parse-only P picture on dev (K18). sao_params:
+    """Reconstruction of a parse-only P or B picture on dev (K18). sao_params:
     (type, offs, bpos, eocl) int8 numpy arrays, or None for no SAO.
     Returns the (y, cb, cr) uint8 planes on dev."""
     from ..ops.wavefront import recon_inter_filter
@@ -91,13 +91,22 @@ def recon_inter_picture(wf_coder, fs, sps, pps, hdr, ref_lists, sao_params,
     intra8 = parsed8 & (fs.pred_mode[::2, ::2] == 1)
     inter8 = parsed8 & (fs.pred_mode[::2, ::2] == 0)
     uniq, slot_of = _slot_tables(ref_lists)
-    # per-8x8-cell motion (uniform per cell by the sub-8-PU parse gate);
-    # intra and unparsed cells predict throwaway samples from slot 0
-    tab = np.array([slot_of[id(rp.fs)] for rp in ref_lists[0]] + [0],
-                   np.int32)
-    ref8 = fs.ref_idx[0, ::2, ::2].astype(np.int32)
-    slot0 = np.where(ref8 >= 0, tab[np.clip(ref8, 0, len(tab) - 1)], 0)
-    mv0 = np.ascontiguousarray(fs.mv[0, ::2, ::2].reshape(-1, 2), np.int32)
+    # per-8x8-cell motion (uniform per cell by the sub-8-PU parse gate):
+    # slot -1 where a list is unused; intra and unparsed cells (neither
+    # list) predict throwaway samples from slot 0 of list 0
+    ref8 = fs.ref_idx[:, ::2, ::2].astype(np.int32)
+    slots = []
+    for l in range(2):
+        tab = np.array([slot_of[id(rp.fs)] for rp in ref_lists[l]] + [0],
+                       np.int32)
+        slots.append(np.where(ref8[l] >= 0,
+                              tab[np.clip(ref8[l], 0, len(tab) - 1)], -1)
+                     .astype(np.int32).reshape(-1))
+    slot0, slot1 = slots
+    slot0 = np.where((slot0 < 0) & (slot1 < 0), 0, slot0)
+    has_l1 = bool((ref8[1] >= 0).any())
+    mv0, mv1 = (np.ascontiguousarray(fs.mv[l, ::2, ::2].reshape(-1, 2),
+                                     np.int32) for l in range(2))
     qp4 = np.clip(fs.qp, 0, 51).astype(np.int32)
     cqps = [np.array([chroma_qp(min(q + po + so, 57)) for q in range(64)],
                      np.int32)[qp4][::2, ::2]
@@ -118,10 +127,10 @@ def recon_inter_picture(wf_coder, fs, sps, pps, hdr, ref_lists, sao_params,
         bs = [T(np.asarray(compute_bs(fs, v), np.uint8)) for v in (True,
                                                                    False)]
     return recon_inter_filter(
-        refs, T(slot0.reshape(-1)), T(mv0), coefs, T(log2m8), T(qp4),
+        refs, T(slot0), T(mv0), coefs, T(log2m8), T(qp4),
         T(cqps[0]), T(cqps[1]), T(inter8), sched, *bs, sp,
         bool(sps.strong_intra_smoothing),
         not bool(hdr.deblocking_filter_disabled), bool(hdr.sao_chroma),
         hdr.beta_offset_div2, hdr.tc_offset_div2, pps.cb_qp_offset,
         pps.cr_qp_offset, sps.width, sps.height, sps.ctb_size,
-        reference=reference)
+        reference=reference, slot1=T(slot1), mv1=T(mv1), has_l1=has_l1)

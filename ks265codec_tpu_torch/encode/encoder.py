@@ -4,22 +4,31 @@ ks265codec_tpu_torch.
 Same configuration (`EncoderConfig`), the same `encode_frame` / `flush`
 contract and the same `EncodedFrame` as ks265codec_tpu/encode/encoder.py,
 for the configurations the port covers (`unsupported` lists the rest):
-fixed QP, both decision tiers (effort 0 and 1), RDOQ and sign-bit hiding,
-and either all-intra (`intra_period=1`, SAO at any tier: every preset from
-ultrafast to placebo) or low-delay P (`bframes == 0`, one reference, SAO
-at any tier: ultrafast to fast).
+fixed QP, the decision tiers (effort 0, and 1 for any nonzero effort, as
+in the reference), RDOQ and sign-bit hiding, and either all-intra
+(`intra_period=1`, SAO at any tier: every preset from ultrafast to
+placebo) or inter coding with one reference per list (SAO at any tier:
+ultrafast to fast): low-delay P (zerolatency or `bframes == 0`) or the
+hierarchical B GOPs (GOP-8 at `bframes=7`, offline; GOP-4 at
+`livestreaming`/`netvideo`, whose bframes is 3).
 
-Low-delay P follows the reference's `_drain` IDR and low-delay branches
-and the P branch of `_encode_picture`: every frame is pushed to the
-lookahead (K12, ops/lookahead.py), whose scene cuts turn a P into an IDR;
-an IDR goes through the all-intra kernels below as a one-frame batch and
-its device reconstruction enters the device DPB directly; each P picture
-takes the previous picture as its one reference and the +3/+2/+3/+1 QP
-cascade, and is coded by the inter engine (encode/inter_engine.py: K5,
-K13, K15, K17 with K14 and the seeded K6 scan, K7, and with SAO on the
-device K8 -> K16 -> K9, whose parameters the slice writes; the host
-float64 decision of encode/sao.py is not run for P pictures, as the
-reference does not run it there).
+Inter streams follow the reference's `_drain` inter branches and the
+inter branch of `_encode_picture`: every frame is pushed to the lookahead
+(K12, ops/lookahead.py), whose scene cuts turn a picture into an IDR; an
+IDR goes through the all-intra kernels below as a one-frame batch and
+its device reconstruction enters the device DPB directly. Low delay codes
+one P picture per step with the previous picture as its reference and the
++3/+2/+3/+1 QP cascade. The B GOPs wait until a GOP's frames are queued,
+let b-adapt (the median of the lookahead's pcost/icost over the GOP)
+keep the pyramid, cut it to GOP-4 or code plain P, and code the GOP in
+its plan's order (8,4,2,1,3,6,5,7) with each plan entry's RPS, lists, QP
+offset and temporal layer; an approaching IDR or scene cut, and the
+flush, code the frames left as plain P pictures. Each P or B picture is
+coded by the inter engine (encode/inter_engine.py: K5, K13, K15, K17
+with K14 and the seeded K6 scan, K7, and with SAO on the device K8 ->
+K16 -> K9, whose parameters the slice writes; the host float64 decision
+of encode/sao.py is not run for inter pictures, as the reference does
+not run it there).
 
 All-intra follows the reference's batched all-intra path (`_drain`'s
 all-intra branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the
@@ -54,7 +63,7 @@ from ..bitstream.nal import NalType, epb_insert_positions, write_nal
 from ..decode.slice_dec import FrameState
 from ..hevc.params import PPS, SPS, VPS, VUI, ProfileTierLevel, \
     ShortTermRPS, write_pps, write_sps, write_vps
-from ..hevc.slicehdr import I_SLICE, P_SLICE, SliceHeader, \
+from ..hevc.slicehdr import B_SLICE, I_SLICE, P_SLICE, SliceHeader, \
     write_slice_header
 from ..ops.deblock import deblock_frames, intra_bs_maps
 from ..ops.decide import decide_frames
@@ -95,7 +104,6 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
     out = []
     inter = cfg.intra_period != 1
     checks = [
-        (inter and cfg.bframes != 0, "B pictures (bframes > 0)"),
         (inter and cfg.refs > 1, "multiple reference pictures (refs > 1)"),
         (inter and bool(cfg.weightp), "weighted prediction (weightp)"),
         (inter and tile_dims(cfg) != (1, 1), "tiles with inter coding"),
@@ -116,7 +124,6 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
          "streams"),
         (cfg.slices > 1, "multiple slices"),
         (not cfg.fpp, "the per-frame path (fpp=False)"),
-        (cfg.decide_effort not in (0, 1), "decide_effort above 1"),
         (bool(cfg.ssim), "SSIM reporting"),
     ]
     return [what for bad, what in checks if bad]
@@ -182,9 +189,14 @@ class HevcEncoder:
 
     @staticmethod
     def _dpb_params(cfg: EncoderConfig) -> tuple[int, int]:
-        """(max_dec_pic_buffering, num_reorder_pics); all-intra or
-        low-delay P."""
-        return max(2, int(cfg.refs) + 1), 0
+        """(max_dec_pic_buffering, num_reorder_pics) for the GOP shape:
+        low delay or all-intra reorder nothing; a B pyramid reorders as
+        deep as its coding order (3 for GOP-8, 2 for GOP-4)."""
+        if cfg.latency == "zerolatency" or cfg.bframes == 0 \
+                or cfg.intra_period == 1:
+            return max(2, int(cfg.refs) + 1), 0
+        from .gop import gop_plan, reorder_depth
+        return 6, reorder_depth(gop_plan(cfg.latency, cfg.bframes))
 
     def _make_vps(self, cfg: EncoderConfig) -> VPS:
         v = VPS()
@@ -321,7 +333,7 @@ class HevcEncoder:
 
     def _drain(self, flushing: bool) -> list[EncodedFrame]:
         if self._inter:
-            return self._drain_low_delay(flushing)
+            return self._drain_inter(flushing)
         out: list[EncodedFrame] = []
         full = self._sizes[0]
         while self.queue or self._pending is not None:
@@ -337,14 +349,18 @@ class HevcEncoder:
             out += self._collect(ctx)
         return out
 
-    def _drain_low_delay(self, flushing: bool) -> list[EncodedFrame]:
-        """The reference `_drain`'s IDR and low-delay branches: one
-        picture per step, an IDR at the intra period or a scene cut,
-        else a P picture of the LDP plan."""
-        from .gop import gop_plan
+    def _drain_inter(self, flushing: bool) -> list[EncodedFrame]:
+        """The reference `_drain`'s inter branches: an IDR at the intra
+        period or a scene cut; low delay (GOP size 1) one P picture per
+        step; otherwise a GOP of B pictures in its coding order once its
+        frames are queued (b-adapt may cut it to GOP-4 or plain P), plain
+        P pictures up to an approaching IDR or scene cut, and on the flush
+        plain P pictures for the frames left."""
+        from .gop import LDP, gop_plan, gop_size
         out: list[EncodedFrame] = []
         cfg = self.cfg
         iper = cfg.intra_period
+        gop_n = gop_size(cfg.latency, cfg.bframes)
         while self.queue:
             idx0 = self.queue[0][0]
             if idx0 == 0 or (iper > 0 and idx0 % iper == 0):
@@ -357,21 +373,89 @@ class HevcEncoder:
                 self.la.analyses[idx0].scenecut = False
                 out.append(self._encode_idr(*self.queue.pop(0)))
                 continue
-            ldp = gop_plan(cfg.latency, cfg.bframes, cfg.refs)
-            di, f = self.queue.pop(0)
-            if self.dpb and self.rc.should_skip("P"):
-                # VBV nearly empty: emit no NAL, repeat the last reference
-                self.rc.skipped()
-                ef = EncodedFrame(
-                    data=b"", recon=self._wrap_recon(self.dpb[-1].fs),
-                    poc=self.dpb[-1].poc, qp=0, bits=0, slice_type="skip")
-                ef.display_idx = di
-                ef.pts = di
-                out.append(ef)
+            till_idr = (iper - (idx0 % iper)) if iper > 0 else 1 << 30
+            # a scene cut inside the upcoming GOP shortens it the same way
+            # an approaching IDR does
+            for k in range(1, min(gop_n, len(self.queue))):
+                fa = self.la.get(idx0 + k, force=flushing)
+                if fa is not None and fa.scenecut:
+                    till_idr = min(till_idr, k)
+                    break
+            if gop_n == 1:
+                ldp = gop_plan(cfg.latency, cfg.bframes, cfg.refs)
+                di, f = self.queue.pop(0)
+                if self.dpb and self.rc.should_skip("P"):
+                    # VBV nearly empty: emit no NAL, repeat the last
+                    # reference
+                    self.rc.skipped()
+                    ef = EncodedFrame(
+                        data=b"", recon=self._wrap_recon(self.dpb[-1].fs),
+                        poc=self.dpb[-1].poc, qp=0, bits=0,
+                        slice_type="skip")
+                    ef.display_idx = di
+                    ef.pts = di
+                    out.append(ef)
+                    continue
+                out.append(self._encode_inter(f, di,
+                                              ldp[self.gop_base % len(ldp)]))
+                self.gop_base += 1
                 continue
-            out.append(self._encode_p(f, di, ldp[self.gop_base % len(ldp)]))
-            self.gop_base += 1
+            if till_idr >= gop_n and len(self.queue) >= gop_n:
+                use_n = self._b_adapt(idx0, gop_n)
+                if use_n == 1:
+                    di, f = self.queue.pop(0)
+                    out.append(self._encode_inter(
+                        f, di, LDP[self.gop_base % len(LDP)]))
+                    self.gop_base += 1
+                    continue
+                plans = gop_plan(cfg.latency, cfg.bframes if use_n == gop_n
+                                 else use_n - 1)
+                batch, self.queue = self.queue[:use_n], self.queue[use_n:]
+                for plan in plans:
+                    di, f = batch[plan.poc_in_gop - 1]
+                    out.append(self._encode_inter(f, di, plan))
+                self.gop_base += use_n
+                continue
+            if till_idr < gop_n and len(self.queue) >= till_idr:
+                # closed GOP: plain P pictures up to the boundary
+                for _ in range(till_idr):
+                    di, f = self.queue.pop(0)
+                    out.append(self._encode_inter(
+                        f, di, LDP[self.gop_base % len(LDP)]))
+                    self.gop_base += 1
+                continue
+            if flushing:
+                while self.queue:
+                    di, f = self.queue.pop(0)
+                    out.append(self._encode_inter(
+                        f, di, LDP[self.gop_base % len(LDP)]))
+                    self.gop_base += 1
+                continue
+            break
         return out
+
+    def _b_adapt(self, idx0: int, gop_n: int) -> int:
+        """Pictures of the next GOP: b-adapt's median inter/intra cost
+        ratio of its frames above 0.80 gives plain P (1), above 0.55 the
+        shallow GOP-4 (from GOP-8), else the full GOP."""
+        if not self.cfg.b_adapt or gop_n <= 2:
+            return gop_n
+        rs = []
+        for k in range(gop_n):
+            # coding-time read: the window is queued, so the pending
+            # analysis batch is forced
+            with stage("la.features"):
+                fa = self.la.get(idx0 + k, force=True)
+            if fa is None or fa.icost <= 0:
+                break
+            rs.append(fa.pcost / max(fa.icost, 1.0))
+        if len(rs) == gop_n:
+            m = float(np.median(rs))
+            if m > 0.80:
+                return 1
+            if m > 0.55 and gop_n > 4:
+                return 4
+        return gop_n
 
     def _encode_idr(self, display_idx: int, frame) -> EncodedFrame:
         """An IDR of a low-delay stream: the all-intra kernels on a
@@ -392,19 +476,24 @@ class HevcEncoder:
         self._rc_update(ef, 0, 1e5)
         return ef
 
-    def _encode_p(self, frame, display_idx: int, plan) -> EncodedFrame:
-        """One P picture of the LDP plan (the reference `_encode_picture`'s
-        P branch): RPS trimmed to the DPB, L0 from it, TMVP from L0[0],
-        the inter engine, the slice, then the DPB and device-DPB update."""
+    def _encode_inter(self, frame, display_idx: int, plan) -> EncodedFrame:
+        """One P or B picture of a GOP plan (the reference
+        `_encode_picture`'s inter branch): RPS trimmed to the DPB (entries
+        with used_by_curr 0 stay named, so their pictures stay in both
+        DPBs), L0 and L1 from the plan's deltas (a B picture with an empty
+        list degrades to P), TMVP from L0[0], the QP of the plan's cascade
+        entry, the inter engine, the slice, then the DPB and device-DPB
+        update."""
         from ..decode.decoder import RefPic
-        from .inter_frame import PFrameEncoder
+        from .inter_frame import BFrameEncoder, PFrameEncoder
         cfg, sps, pps = self.cfg, self.sps, self.pps
         poc = self.gop_base + plan.poc_in_gop
         tid = plan.tid
+        slice_type = P_SLICE if plan.slice_type == "P" else B_SLICE
         qp = int(np.clip(cfg.qp + plan.qp_offset, 0, 51))
         hdr = SliceHeader(nal_type=NalType.TRAIL_R, temporal_id=tid,
                           first_slice_in_pic=1, pps_id=0,
-                          slice_type=P_SLICE, slice_qp=qp,
+                          slice_type=slice_type, slice_qp=qp,
                           pic_order_cnt_lsb=poc & 0xFF)
         hdr.poc = poc
         hdr.deblocking_filter_disabled = pps.deblocking_filter_disabled
@@ -426,7 +515,14 @@ class HevcEncoder:
             num_positive=sum(1 for d in deltas if d > 0))
         hdr.st_rps_idx = -1
         l0 = [by_poc[poc + d] for d in plan.l0 if poc + d in by_poc]
-        hdr.num_ref_idx = [max(1, len(l0)), 0]
+        l1 = [by_poc[poc + d] for d in plan.l1 if poc + d in by_poc]
+        if slice_type == B_SLICE and (not l0 or not l1):
+            # a missing reference: the picture degrades to P
+            slice_type = hdr.slice_type = P_SLICE
+            l0 = l0 or [self.dpb[-1]]
+            l1 = []
+        hdr.num_ref_idx = [max(1, len(l0)),
+                           len(l1) if slice_type == B_SLICE else 0]
         if sps.temporal_mvp_enabled:
             # collocated picture = L0[0]
             hdr.temporal_mvp_enabled = 1
@@ -434,11 +530,11 @@ class HevcEncoder:
             hdr.collocated_ref_idx = 0
         fs = self.frame_pool.acquire(sps)
         fs.poc = poc
-        enc = PFrameEncoder(fs, sps, pps, hdr, frame.y.astype(np.int32),
-                            frame.u.astype(np.int32),
-                            frame.v.astype(np.int32), qp, [l0, []],
-                            subme=cfg.subme, device=self.device,
-                            reference=self.reference)
+        cls = BFrameEncoder if slice_type == B_SLICE else PFrameEncoder
+        enc = cls(fs, sps, pps, hdr, frame.y.astype(np.int32),
+                  frame.u.astype(np.int32), frame.v.astype(np.int32), qp,
+                  [l0, l1], subme=cfg.subme, device=self.device,
+                  reference=self.reference)
         enc.lam_scale = cfg.lambda_scale
         enc.rdoq = bool(cfg.rdoq)
         enc.decide_effort = int(cfg.decide_effort)
@@ -479,9 +575,11 @@ class HevcEncoder:
         self.dpb.append(RefPic(fs, poc))
         self.dev_dpb.put(fs, recon_dev)
         self.dev_dpb.trim({rp.fs.serial for rp in self.dpb})
-        log(-1, "enc poc %d P qp %d bits %d" % (poc, qp, len(data) * 8))
+        ftype = "P" if slice_type == P_SLICE else "B"
+        log(-1, "enc poc %d %s qp %d bits %d" % (poc, ftype, qp,
+                                                 len(data) * 8))
         ef = EncodedFrame(data=data, recon=rec, poc=poc, qp=qp,
-                          bits=len(data) * 8, slice_type="P")
+                          bits=len(data) * 8, slice_type=ftype)
         ef.display_idx = display_idx
         ef.temporal_id = tid
         ef.pts = display_idx

@@ -1,13 +1,14 @@
-"""Device inter-frame engine: host orchestration of the batched P coding
+"""Device inter-frame engine: host orchestration of the batched P/B coding
 path (ops/interdecide + ops/intercode + encode/merge_vec).
 
-The port's copy of ks265codec_tpu/encode/inter_engine.py for P pictures:
-the device calls (`_device_inputs`, `engine_pre_analysis`,
+The port's copy of ks265codec_tpu/encode/inter_engine.py for P and B
+pictures: the device calls (`_device_inputs`, `engine_pre_analysis`,
 `decide_fused`, `_snap_merges`, `_dispatch_coding`, `_intra_segs`) go to
-the port's ops (K5, K13, K15, K17 and the seeded K6 scan) on the
-encoder's device and return typed tensors; the host logic is the
-reference's. The engine reads no environment variable: it takes its own
-default of two decision iterations. B pictures, weighted prediction and
+the port's ops (K5, K13 with its bi cost in B pictures, K15, K17 with
+K14 over both lists, and the seeded K6 scan) on the encoder's device and
+return typed tensors; the host logic is the reference's, its `is_b`
+branches included. The engine reads no environment variable: it takes
+its own default of two decision iterations. Weighted prediction and
 cu_qp_delta inside the engine are not ported and raise.
 
 Pipeline per frame (the reference's per-CTU P/B hot loop
@@ -146,7 +147,20 @@ def engine_pre_analysis(enc) -> None:
     is_b = enc.hdr.slice_type == 0 and len(enc.ref_lists[1]) > 0
 
     if is_b:
-        raise NotImplementedError("B pictures are not ported")
+        rp0, rp1 = enc.ref_lists[0][0], enc.ref_lists[1][0]
+        sl = torch.as_tensor([slot_of[id(rp0.fs)], slot_of[id(rp1.fs)]],
+                             device=refs_dev[0].device)
+        with stage("inter.me_fused"):
+            mv_q, cost, dir8, sad8 = me_fused(
+                src_dev[0], refs_dev[0][sl].contiguous(), merange, lam8, pw,
+                ph, bi=True, reference=enc.reference)
+            mv_q = mv_q.cpu().numpy()
+            enc.dir8 = dir8.cpu().numpy()
+            enc.sad8 = sad8.cpu().numpy()
+        enc.mv0q8, enc.mv1q8 = mv_q[0], mv_q[1]
+        # 16-tier ME record = min-cost child's motion
+        enc.dir16, enc.mv0q, enc.mv1q, enc.sad16 = _child_min_b(
+            enc.dir8, mv_q[0], mv_q[1], enc.sad8)
     else:
         sl = torch.as_tensor([slot_of[id(rp.fs)]
                               for rp in enc.ref_lists[0]],
@@ -200,7 +214,8 @@ def run_engine(enc) -> None:
     if hdr.weights is not None:
         raise NotImplementedError("weighted prediction is not ported")
     if pps.cu_qp_delta_enabled:
-        raise NotImplementedError("cu_qp_delta in P pictures is not ported")
+        raise NotImplementedError("cu_qp_delta in inter pictures is not "
+                                  "ported")
     cfg_w, cfg_h = sps.width, sps.height
     ph, pw = fs.ph, fs.pw
     h8, w8 = ph >> 3, pw >> 3
@@ -769,6 +784,7 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
     slot0 = to_slot(0, maps.ref[0]).reshape(-1)
     slot1 = to_slot(1, maps.ref[1]).reshape(-1)
     mv0 = maps.mv[0].reshape(-1, 2)
+    mv1 = maps.mv[1].reshape(-1, 2)
     # intra cells predict garbage (overwritten by the wavefront): give
     # them slot 0 so the gather stays in range
     orphan = (slot0 < 0) & (slot1 < 0)
@@ -841,7 +857,9 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
             bool(sps.strong_intra_smoothing), reference=enc.reference,
             sao=((enc.sao_tier, int(hdr.slice_qp), sps.ctb_size)
                  if sps.sao_enabled else None),
-            sbh=bool(pps.sign_data_hiding_enabled))
+            sbh=bool(pps.sign_data_hiding_enabled),
+            slot1=T(slot1.astype(np.int32)), mv1=T(mv1.astype(np.int32)),
+            has_l1=is_b)
     with stage("inter.code_fetch"):
         coeffs = tuple(c.cpu().numpy() for c in coef_dev)
         sao_arrays = (None if sao_dev is None

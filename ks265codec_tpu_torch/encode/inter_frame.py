@@ -1,13 +1,15 @@
-"""P-picture encoder: the batched device inter engine
+"""P- and B-picture encoders: the batched device inter engine
 (encode/inter_engine.py) on the port's kernels.
 
-The port's counterpart of ks265codec_tpu/encode/inter_frame.py for P
-pictures: `PFrameEncoder` with its lambda set-up, `_engine_ok` and
-`mv_pred_field` (which the engine imports) are the reference's. `compute`
-runs the engine and nothing else: the reference's sequential host walk
-(and with it ops/me.py and ops/subpel.py, K20 and K21) is not ported, so
-a configuration the engine does not cover raises NotImplementedError, and
-a failure inside the engine raises instead of falling back.
+The port's counterpart of ks265codec_tpu/encode/inter_frame.py:
+`PFrameEncoder` with its lambda set-up, `_engine_ok` and `mv_pred_field`
+(which the engine imports) are the reference's, and `BFrameEncoder` is
+the reference's subclass for B pictures, whose lists L0 and L1 the engine
+reads (its `is_b` branches). `compute` runs the engine and nothing else:
+the reference's sequential host walk (and with it ops/me.py and
+ops/subpel.py, K20 and K21) is not ported, so a configuration the engine
+does not cover raises NotImplementedError, and a failure inside the
+engine raises instead of falling back.
 """
 
 from __future__ import annotations
@@ -74,3 +76,11 @@ class PFrameEncoder(IntraFrameEncoder):
         from .inter_engine import engine_pre_analysis, run_engine
         engine_pre_analysis(self)
         run_engine(self)
+
+
+class BFrameEncoder(PFrameEncoder):
+    """Codes one B picture (single slice) through the device engine: the
+    motion search of L0[0] and L1[0] with the bi-prediction cost (K13),
+    then the decisions and the coding pass over both lists. The
+    reference's host pre-analysis of B pictures belongs to its host walk,
+    which is not ported."""

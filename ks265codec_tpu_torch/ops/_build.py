@@ -47,9 +47,10 @@ _SIGNATURES = {
     "ks_me_dense_l2": [_P] * 4 + [_I] * 4 + [_F, _P],
     "ks_me_refine3": [_P] * 3 + [_I] * 7 + [_P],
     "ks_me_subpel8": [_P] * 4 + [_I] * 5 + [_F, _P, _P],
-    "ks_inter_decide_tier": [_P] * 25 + [_I] * 8 + [_P],
-    "ks_inter_cand_sads": [_P] * 7 + [_I] * 7 + [_P],
-    "ks_inter_mc": [_P] * 8 + [_I] * 6 + [_P],
+    "ks_me_bi_cost8": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "ks_inter_decide_tier": [_P] * 29 + [_I] * 9 + [_P],
+    "ks_inter_cand_sads": [_P] * 9 + [_I] * 8 + [_P],
+    "ks_inter_mc": [_P] * 10 + [_I] * 7 + [_P],
     "ks_inter_tu_class": [_P] * 17 + [_I] * 7 + [_P],
     "ks_inter_gate": [_P] * 4 + [_I] * 2 + [_P],
     "ks_inter_finish": [_P] * 18 + [_I] * 6 + [_P],

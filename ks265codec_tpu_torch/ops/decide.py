@@ -406,11 +406,11 @@ def _maps(split32, split16, cplx, t8, t16, t32) -> dict:
 def decide_frames(planes: torch.Tensor, cbs: torch.Tensor,
                   crs: torch.Tensor, qps, lam_scale: float = 1.0,
                   effort: int = 0, reference: bool = False) -> dict:
-    """The decision pass for a batch of padded frames on their device, at
-    effort 0 or 1. CUDA tensors launch the kernels (csrc/decide.cu); CPU
-    tensors, or reference=True, run `decide_frames_plain`."""
-    if effort not in (0, 1):
-        raise ValueError(f"decide effort {effort}: 0 or 1")
+    """The decision pass for a batch of padded frames on their device. Any
+    nonzero effort is effort 1, as in the reference (`ops/decide.py`
+    tests `if effort`). CUDA tensors launch the kernels (csrc/decide.cu);
+    CPU tensors, or reference=True, run `decide_frames_plain`."""
+    effort = 1 if effort else 0
     qpa, qpca, lam, ls = frame_lambdas(qps, lam_scale)
     dev = planes.device
     args = (torch.as_tensor(qpa, device=dev), torch.as_tensor(qpca, device=dev),

@@ -1,18 +1,20 @@
-"""Inter coding of one P picture (K17, with K14 inside): MC, the residual
-of every transform unit by TU class, the CU zero-forcing gate, the final
-levels and reconstruction, the seeded intra scan of the picture's intra
-CUs, the boundary strengths, the deblocking filter and, when the
-sequence has it, SAO (K8 statistics -> K16 decision -> K9).
+"""Inter coding of one P or B picture (K17, with K14 inside): MC, the
+residual of every transform unit by TU class, the CU zero-forcing gate,
+the final levels and reconstruction, the seeded intra scan of the
+picture's intra CUs, the boundary strengths, the deblocking filter and,
+when the sequence has it, SAO (K8 statistics -> K16 decision -> K9).
 
 Counterpart of ks265codec_tpu/ops/intercode.py::_inter_code_core (with
-`_code_tu_class`, the chroma branch, and `code_inter_frame_jit`) for
-uni-prediction and no cu_qp_delta (the effective-QP chain
-`_effective_qp4` is then the identity). Sign hiding (K2's
-encode/sbh.py), where the PPS enables it, runs on every inter TU with the
-diagonal scan, before the TU's sums, and in the seeded intra scan; the
-reference runs no RDOQ in P pictures, and neither does the port. The
-coefficient planes come back dense; the reference's sparse packing is a
-transfer workaround and is not ported.
+`_code_tu_class`, the chroma branch, and `code_inter_frame_jit`) without
+weighted prediction and cu_qp_delta (the effective-QP chain
+`_effective_qp4` is then the identity). List 1 (`has_l1`, B pictures)
+reaches only the MC: K14 averages the two lists' predictions where a cell
+uses both, and everything after it reads the prediction planes. Sign
+hiding (K2's encode/sbh.py), where the PPS enables it, runs on every
+inter TU with the diagonal scan, before the TU's sums, and in the seeded
+intra scan; the reference runs no RDOQ in P or B pictures, and neither
+does the port. The coefficient planes come back dense; the reference's
+sparse packing is a transfer workaround and is not ported.
 
 The gate `(d_skip - d_coded) <= cu_lam * (bits + 10)` decides which
 residuals are dropped, so its float32 inputs follow the reference
@@ -43,7 +45,7 @@ from ..interop import device_log_table, device_rank_table, device_tables
 from . import _build
 from .decide import _block_sum, _tree, fma32
 from .deblock import deblock_frames
-from .mc import mc_planes
+from .mc import mc_planes, no_l1
 from .saoapply import sao_apply_frames
 from .saodecide import sao_decide
 from .saostats import sao_stats_frames
@@ -193,14 +195,16 @@ def cu_sums(si, pi, tu_packs: dict, n_cu: int, sbh: bool):
 
 
 
-def code_inter_frame_plain(src, refs, slot0, mv0, tu_packs, cu_lam,
+def code_inter_frame_plain(src, refs, slot0, mv0, l1, tu_packs, cu_lam,
                            intra_sched, n_cu: int, h8: int, w8: int,
                            pic_w: int, pic_h: int, strong: bool, sbh: bool):
     """Steps 1-5 on the plain path: returns (pred, rec, coef, cbf4), each
-    plane set a (y, cb, cr) tuple; rec is pre-deblocking."""
+    plane set a (y, cb, cr) tuple; rec is pre-deblocking. l1: list 1's
+    (slot1, mv1), or None."""
     dev = src[0].device
     si = [p.to(torch.int32) for p in src]
-    pred = mc_planes(refs, slot0, mv0, h8, w8, pic_w, pic_h, reference=True)
+    pred = mc_planes(refs, slot0, mv0, *(l1 or no_l1(slot0, mv0)),
+                     l1 is not None, h8, w8, pic_w, pic_h, reference=True)
     pi = [p.to(torch.int32) for p in pred]
     acc, results = cu_sums(si, pi, tu_packs, n_cu, sbh)
     d_skip, d_coded, bits = acc
@@ -239,7 +243,7 @@ def _i32(a, dev):
     return a.to(device=dev, dtype=torch.int32).contiguous()
 
 
-def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
+def code_inter_frame_cuda(src, refs, slot0, mv0, l1, tu_packs, cu_lam,
                           intra_sched, n_cu: int, h8: int, w8: int,
                           pic_w: int, pic_h: int, strong: bool, sbh: bool):
     """Steps 1-5 on the card (see the module note)."""
@@ -252,7 +256,8 @@ def code_inter_frame_cuda(src, refs, slot0, mv0, tu_packs, cu_lam,
     P = _build.ptr
     tab = device_tables(dev)
     R, H, W = refs[0].shape
-    pred = mc_planes(refs, slot0, mv0, h8, w8, pic_w, pic_h)
+    pred = mc_planes(refs, slot0, mv0, *(l1 or no_l1(slot0, mv0)),
+                     l1 is not None, h8, w8, pic_w, pic_h)
     ctab = torch.as_tensor(cu_table(tu_packs, n_cu), device=dev)
     cls = []
     sums = torch.zeros((len(CLASS_ORDER), 3, max(
@@ -351,10 +356,13 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
                      n_cu: int, h8: int, w8: int, pic_w: int, pic_h: int,
                      boff: int, toff: int, cbo: int, cro: int,
                      deblock: bool, strong: bool, reference: bool = False,
-                     want_pred: bool = False, sao=None, sbh: bool = False):
-    """Code one P picture. src (y, cb, cr) uint8 planes, refs (R, ...)
-    uint8 stacks; slot0 (h8*w8,), mv0 (h8*w8, 2) per-cell motion (slot
-    -1 never reaches here: intra cells carry slot 0); tu_packs:
+                     want_pred: bool = False, sao=None, sbh: bool = False,
+                     slot1=None, mv1=None, has_l1: bool = False):
+    """Code one P or B picture. src (y, cb, cr) uint8 planes, refs (R, ...)
+    uint8 stacks; slot0 (h8*w8,), mv0 (h8*w8, 2) per-cell motion, and
+    with has_l1 (a B picture) list 1's slot1 / mv1 (slot -1: the list is
+    unused; a cell with neither list, an intra cell, carries slot0 = 0);
+    tu_packs:
     {(is_luma, n): (xs, ys, qp, cu_id, valid[, plane])}; cu_lam
     (n_cu + 1,) float32; intra_sched: the intra CUs' schedule or None;
     bs_in: (e2_v, e2_h, etb_v, etb_h, emv_v, emv_h) per 4x4; qp4 per 4x4;
@@ -367,7 +375,8 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
     dev = src[0].device
     plain = dev.type != "cuda" or reference
     fn = code_inter_frame_plain if plain else code_inter_frame_cuda
-    pred, rec, coef, cbf4 = fn(src, refs, slot0.to(dev), mv0.to(dev),
+    l1 = (slot1.to(dev), mv1.to(dev)) if has_l1 else None
+    pred, rec, coef, cbf4 = fn(src, refs, slot0.to(dev), mv0.to(dev), l1,
                                tu_packs, cu_lam, intra_sched, n_cu, h8, w8,
                                pic_w, pic_h, strong, sbh)
     if intra_sched is not None:

@@ -14,10 +14,12 @@ computes the same sums as float32 matrix products, exact below 2^24. The
 port computes them in int32 and does not carry the TPU's phase-expanded
 matrices or 8-bit limb splits. Explicit weighted prediction is not ported.
 
-CUDA: the same arithmetic as `__device__` functions in csrc/mc.cuh, inlined
-in K13 (csrc/me.cu) and K15 (csrc/inter_decide.cu); the whole-picture
-uni-prediction `mc_planes` launches `ks_inter_mc` (csrc/inter_code.cu, one
-thread block per 8x8 cell) for K17's coding pass and K18's decode.
+CUDA: the same arithmetic as `__device__` functions in csrc/mc.cuh
+(`ks_mc_sample`, `ks_mc_uni`, `ks_mc_bi`, `ks_mc_pred`), inlined in K13
+(csrc/me.cu) and K15 (csrc/inter_decide.cu); the whole-picture
+`mc_planes` launches `ks_inter_mc` (csrc/inter_code.cu, one thread block
+per 8x8 cell; list 1 a template argument, so P pictures run the uni code
+alone) for K17's coding pass and K18's decode.
 """
 
 from __future__ import annotations
@@ -126,11 +128,11 @@ def mc_planes_plain(refs_y, refs_cb, refs_cr, slot0, mv0, slot1, mv1,
     return tuple(outs)
 
 
-def mc_planes_cuda(refs, slot0, mv0, h8: int, w8: int, pic_w: int,
-                   pic_h: int):
-    """K14 on the card: the uni-predicted planes of the (h8, w8) cell grid
-    from per-cell motion (`mc_planes_plain` without list 1), one launch of
-    `ks_inter_mc`."""
+def mc_planes_cuda(refs, slot0, mv0, slot1, mv1, has_l1: bool, h8: int,
+                   w8: int, pic_w: int, pic_h: int):
+    """K14 on the card: the predicted planes of the (h8, w8) cell grid from
+    per-cell motion (`mc_planes_plain`), one launch of `ks_inter_mc`; list
+    1 (slot1, mv1) is read only with has_l1."""
     for t in refs:
         if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
             raise ValueError("reference stacks must be contiguous uint8 "
@@ -139,28 +141,37 @@ def mc_planes_cuda(refs, slot0, mv0, h8: int, w8: int, pic_w: int,
     R, H, W = refs[0].shape
     if (H, W) != (8 * h8, 8 * w8):
         raise ValueError("the cell grid must cover the planes")
-    slot0 = slot0.to(device=dev, dtype=torch.int32).contiguous()
-    mv0 = mv0.to(device=dev, dtype=torch.int32).contiguous()
+    slot0, slot1 = (s.to(device=dev, dtype=torch.int32).contiguous()
+                    for s in (slot0, slot1))
+    mv0, mv1 = (m.to(device=dev, dtype=torch.int32).contiguous()
+                for m in (mv0, mv1))
     pred = tuple(torch.empty(r.shape[1:], dtype=torch.uint8, device=dev)
                  for r in refs)
     P = _build.ptr
     _build.check(_build.kernels().ks_inter_mc(
-        P(refs[0]), P(refs[1]), P(refs[2]), P(slot0), P(mv0), P(pred[0]),
-        P(pred[1]), P(pred[2]), h8, w8, H, W, pic_w, pic_h,
-        _build.stream(dev)), "ks_inter_mc")
-    _build.count("inter_mc")
+        P(refs[0]), P(refs[1]), P(refs[2]), P(slot0), P(mv0), P(slot1),
+        P(mv1), P(pred[0]), P(pred[1]), P(pred[2]), h8, w8, H, W, pic_w,
+        pic_h, int(has_l1), _build.stream(dev)), "ks_inter_mc")
+    _build.count("inter_mc_bi" if has_l1 else "inter_mc")
     return pred
 
 
-def mc_planes(refs, slot0, mv0, h8: int, w8: int, pic_w: int, pic_h: int,
-              reference: bool = False):
-    """Uni-predicted (y, cb, cr) uint8 planes of the cell grid from
-    per-cell motion: refs (R, H, W) uint8 stacks, slot0 (h8*w8,) (>= 0),
-    mv0 (h8*w8, 2). CUDA stacks launch the kernel; CPU stacks, or
-    reference=True, run `mc_planes_plain`."""
+def mc_planes(refs, slot0, mv0, slot1, mv1, has_l1: bool, h8: int, w8: int,
+              pic_w: int, pic_h: int, reference: bool = False):
+    """Predicted (y, cb, cr) uint8 planes of the cell grid from per-cell
+    motion: refs (R, H, W) uint8 stacks, slot0 / slot1 (h8*w8,) (-1: the
+    list is unused), mv0 / mv1 (h8*w8, 2); list 1 only with has_l1 (uni
+    callers pass slot1 = -1). CUDA stacks launch the kernel; CPU stacks,
+    or reference=True, run `mc_planes_plain`."""
     if refs[0].device.type != "cuda" or reference:
-        slot0, mv0 = slot0.to(refs[0].device), mv0.to(refs[0].device)
-        return mc_planes_plain(*refs, slot0, mv0, torch.full_like(slot0, -1),
-                               torch.zeros_like(mv0), False, h8, w8, pic_w,
-                               pic_h)
-    return mc_planes_cuda(refs, slot0, mv0, h8, w8, pic_w, pic_h)
+        dev = refs[0].device
+        return mc_planes_plain(*refs, slot0.to(dev), mv0.to(dev),
+                               slot1.to(dev), mv1.to(dev), has_l1, h8, w8,
+                               pic_w, pic_h)
+    return mc_planes_cuda(refs, slot0, mv0, slot1, mv1, has_l1, h8, w8,
+                          pic_w, pic_h)
+
+
+def no_l1(slot0, mv0):
+    """(slot1, mv1) of a uni-predicted picture: list 1 unused."""
+    return torch.full_like(slot0, -1), torch.zeros_like(mv0)

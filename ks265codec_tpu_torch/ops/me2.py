@@ -1,12 +1,13 @@
 """Pyramid motion estimation (K13) for 8x8 blocks against one or more
 reference pictures: a dense quarter-resolution search, +-3 refinement at
 half and at full resolution, and 49 quarter-pel candidates scored by
-SATD plus motion-vector rate.
+SATD plus motion-vector rate; in B pictures (bi=True) then the cost of
+bi-prediction from both winners and each block's direction.
 
-Counterpart of ks265codec_tpu/ops/me2.py::_me_fused_core with bi=False
-(`_down2`, `_dense_l2`, `_med3`, `_refine3`, `_subpel8`; the quarter-pel
-interpolation of ops/subpel.py::_interp_cand is the MC filter of
-ops/mc.py). Levels, for a picture of H x W luma samples:
+Counterpart of ks265codec_tpu/ops/me2.py::_me_fused_core (`_down2`,
+`_dense_l2`, `_med3`, `_refine3`, `_subpel8`, `_bi_cost8`; the
+quarter-pel interpolation of ops/subpel.py::_interp_cand is the MC filter
+of ops/mc.py). Levels, for a picture of H x W luma samples:
   * quarter resolution: the SAD of every 4x4 block (16x16 luma) over
     +-sr offsets into the edge-padded quarter plane (1089 offsets at
     merange 64), then a re-rank by SAD + lam * mv rate around the median
@@ -16,7 +17,13 @@ ops/mc.py). Levels, for a picture of H x W luma samples:
   * full resolution: +-3 around twice the half winner;
   * quarter-pel: the 49 offsets (-3..3)^2 quarter samples around the full
     winner, SATD8 of the interpolated block plus lam * mvd rate against
-    the median of the neighbours' full-pel winners.
+    the median of the neighbours' full-pel winners;
+  * bi (B pictures, references L0[0] and L1[0]): the SATD8 sbi of the
+    rounded average clip((p0 + p1 + 64) >> 7) of both winners' 14-bit
+    predictions; dir8 = 2 where sbi + 8 lam < min(cost0, cost1) (strict),
+    else 1 where cost1 < cost0 (ties to list 0), and sad8 = min(best uni,
+    sbi + 8 lam). 8 lam is exact in float32, so the sum is one rounding
+    whether or not the reference backend fuses it.
 Search windows read the reference clamped per sample to the coded
 picture, except the quarter-resolution search, which pads the whole
 quarter plane as the reference does.
@@ -29,7 +36,9 @@ rate sums and their scaling by lambda follow `_rate_l2` / `_rate_q`.
 CUDA: csrc/me.cu, one launch per level: the quarter-resolution search
 (one thread block per 4x4 quarter block, one thread per offset, SAD grid
 and re-rank in shared memory), the two refinements and the quarter-pel
-stage (one thread block per block); the downsamples are one launch each.
+stage (one thread block per block); the downsamples are one launch each;
+with bi, one launch of the bi cost (one thread block per 8x8 block, one
+thread per sample, the SATD and the decision in one thread).
 """
 
 from __future__ import annotations
@@ -185,11 +194,42 @@ def subpel8(src: torch.Tensor, ref: torch.Tensor, mv_full: torch.Tensor,
     return mv_q.reshape(nby, nbx, 2).to(torch.int32), cost.reshape(nby, nbx)
 
 
+def bi_cost8(src: torch.Tensor, ref0: torch.Tensor, ref1: torch.Tensor,
+             mv0q: torch.Tensor, mv1q: torch.Tensor, pic_w: int, pic_h: int):
+    """The reference's `_bi_cost8`: SATD8 (nby, nbx) int32 of the rounded
+    average of each 8x8 block's list-0 and list-1 quarter-pel predictions.
+    src / ref0 / ref1 (H, W) int32, mv0q / mv1q (nby, nbx, 2)."""
+    H, W = src.shape
+    nby, nbx = H // 8, W // 8
+    dev = src.device
+    K = nby * nbx
+    r = torch.arange(K, device=dev) // nbx
+    c = torch.arange(K, device=dev) % nbx
+    zero = torch.zeros(K, dtype=torch.int64, device=dev)
+    p0, p1 = (interp_cells(ref[None], zero, mv.reshape(-1, 2)[:, 0],
+                           mv.reshape(-1, 2)[:, 1], 8, r * 8, c * 8, True,
+                           pic_w, pic_h)
+              for ref, mv in ((ref0, mv0q), (ref1, mv1q)))
+    bi = ((p0 + p1 + 64) >> 7).clamp(0, 255)
+    return tcost.satd(bi, _blocks(src, 8), 8).reshape(nby, nbx)
+
+
+def bi_decide(sbi: torch.Tensor, cost: torch.Tensor, lam):
+    """(dir8 int8, sad8 float32) from the bi SATD and the two lists'
+    costs (2, nby, nbx): bi where sbi + 8 lam beats the better list."""
+    bb = sbi.to(torch.float32) + torch.as_tensor(lam, dtype=torch.float32,
+                                                 device=sbi.device) * 8.0
+    best_uni = torch.minimum(cost[0], cost[1])
+    dir8 = torch.where(bb < best_uni, 2, (cost[1] < cost[0]).to(torch.int64))
+    return dir8.to(torch.int8), torch.minimum(best_uni, bb)
+
+
 def me_fused_plain(src_y: torch.Tensor, refs_y: torch.Tensor, lam8,
-                   sr_q: int, pic_w: int, pic_h: int):
-    """Plain version of the reference's `_me_fused_core` (bi=False).
+                   sr_q: int, pic_w: int, pic_h: int, bi: bool = False):
+    """Plain version of the reference's `_me_fused_core`.
     src_y (H, W) uint8, refs_y (R, H, W) uint8. Returns
-    (mv_q (R, H/8, W/8, 2) int32, cost (R, H/8, W/8) float32)."""
+    (mv_q (R, H/8, W/8, 2) int32, cost (R, H/8, W/8) float32) and, with
+    bi (R = 2: L0[0], L1[0]), dir8 (H/8, W/8) int8 and sad8 float32."""
     lam = torch.tensor(lam8, dtype=torch.float32, device=src_y.device)
     src = src_y.to(torch.int32)
     src_h = down2(src)
@@ -207,14 +247,20 @@ def me_fused_plain(src_y: torch.Tensor, refs_y: torch.Tensor, lam8,
         mv_q, cost = subpel8(src, ref, mv_f, lam, pic_w, pic_h)
         mvs.append(mv_q)
         costs.append(cost)
-    return torch.stack(mvs), torch.stack(costs)
+    mv_q, cost = torch.stack(mvs), torch.stack(costs)
+    if not bi:
+        return mv_q, cost
+    sbi = bi_cost8(src, refs_y[0].to(torch.int32), refs_y[1].to(torch.int32),
+                   mv_q[0], mv_q[1], pic_w, pic_h)
+    return (mv_q, cost) + bi_decide(sbi, cost, lam)
 
 
 # ------------------------------------------------------------- CUDA kernel
 
 def me_fused_cuda(src_y: torch.Tensor, refs_y: torch.Tensor, lam8,
-                  sr_q: int, pic_w: int, pic_h: int):
-    """The pyramid on the card: downsamples, then one launch per level."""
+                  sr_q: int, pic_w: int, pic_h: int, bi: bool = False):
+    """The pyramid on the card: downsamples, then one launch per level;
+    with bi, the launch of the bi cost and decision."""
     for t in (src_y, refs_y):
         if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
             raise ValueError("ME planes must be contiguous uint8 CUDA tensors")
@@ -264,9 +310,15 @@ def me_fused_cuda(src_y: torch.Tensor, refs_y: torch.Tensor, lam8,
                                    P(device_log_table(dev)), st),
                  "ks_me_subpel8")
     _build.count("me_subpel8")
-    return mv_q, cost
-
-
+    if not bi:
+        return mv_q, cost
+    dir8 = torch.empty((nby8, nbx8), dtype=torch.int8, device=dev)
+    sad8 = torch.empty((nby8, nbx8), dtype=torch.float32, device=dev)
+    _build.check(lib.ks_me_bi_cost8(P(planes), P(mv_q), P(cost), P(dir8),
+                                    P(sad8), H, W, pic_w, pic_h, lam, st),
+                 "ks_me_bi_cost8")
+    _build.count("me_bi_cost8")
+    return mv_q, cost, dir8, sad8
 
 
 def me_fused(src_y: torch.Tensor, refs_y: torch.Tensor, merange: int,
@@ -274,14 +326,15 @@ def me_fused(src_y: torch.Tensor, refs_y: torch.Tensor, merange: int,
              reference: bool = False):
     """Motion search of every 8x8 block of src_y (H, W) uint8 against each
     reference of refs_y (R, H, W) uint8. Returns (mv_q (R, H/8, W/8, 2)
-    int32 quarter-pel, cost (R, H/8, W/8) float32). CUDA tensors launch
-    the kernels; CPU tensors, or reference=True, run the plain version.
-    The bi-prediction decision (B pictures) is not ported."""
-    if bi:
-        raise NotImplementedError("bi-directional motion search (B "
-                                  "pictures) is not ported")
+    int32 quarter-pel, cost (R, H/8, W/8) float32) and, with bi (a B
+    picture: refs_y holds L0[0] and L1[0]), (dir8 (H/8, W/8) int8 0/1/2,
+    sad8 float32) after them. CUDA tensors launch the kernels; CPU
+    tensors, or reference=True, run the plain version."""
+    if bi and refs_y.shape[0] != 2:
+        raise ValueError("the bi cost takes two references, L0[0] and "
+                         "L1[0]")
     sr_q = sr_for(merange)
     if src_y.device.type != "cuda" or reference:
-        return me_fused_plain(src_y, refs_y, lam8, sr_q, pic_w, pic_h)
+        return me_fused_plain(src_y, refs_y, lam8, sr_q, pic_w, pic_h, bi)
     return me_fused_cuda(src_y.contiguous(), refs_y.contiguous(), lam8,
-                         sr_q, pic_w, pic_h)
+                         sr_q, pic_w, pic_h, bi)

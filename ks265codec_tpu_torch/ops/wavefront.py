@@ -529,16 +529,17 @@ def _dense_residual(coef, qp_map, size_pix, classes):
     return resid
 
 
-def inter_recon_plain(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb,
-                      qp4_cr, inter8, sched, strong, width, height):
+def inter_recon_plain(refs, slot0, mv0, slot1, mv1, has_l1, coefs, log2m8,
+                      qp4, qp4_cb, qp4_cr, inter8, sched, strong, width,
+                      height):
     """Plain PyTorch version of K18's reconstruction (the reference's
-    `_recon_inter_filter_core` before its filters, for uni-prediction
-    without weights): MC, the dense residual on inter cells, the seeded
-    intra scan. See `recon_inter_filter`."""
+    `_recon_inter_filter_core` before its filters, without weights): MC
+    from one or (has_l1) two lists, the dense residual on inter cells, the
+    seeded intra scan. See `recon_inter_filter`."""
     from .mc import mc_planes
     h8, w8 = log2m8.shape
-    pred = mc_planes(refs, slot0, mv0, h8, w8, width, height,
-                     reference=True)
+    pred = mc_planes(refs, slot0, mv0, slot1, mv1, has_l1, h8, w8, width,
+                     height, reference=True)
     size = log2m8.to(torch.int32).repeat_interleave(8, 0) \
         .repeat_interleave(8, 1)
     inter = inter8.bool().repeat_interleave(8, 0).repeat_interleave(8, 1)
@@ -573,8 +574,9 @@ def inter_tu_list(log2m8: np.ndarray, inter8: np.ndarray) -> np.ndarray:
     return np.concatenate([luma] + chroma).astype(np.int32)
 
 
-def inter_recon_cuda(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
-                     inter8, sched, strong, width, height):
+def inter_recon_cuda(refs, slot0, mv0, slot1, mv1, has_l1, coefs, log2m8,
+                     qp4, qp4_cb, qp4_cr, inter8, sched, strong, width,
+                     height):
     """K18's reconstruction on the card: K14 (`ks_inter_mc`) into the
     reconstruction planes, one launch of `ks_inter_recon` over the inter
     TUs and K11 over the intra CUs, both in place."""
@@ -588,7 +590,8 @@ def inter_recon_cuda(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
     H, W = coefs[0].shape
     h8, w8 = log2m8.shape
     tab = device_tables(dev)
-    recs = mc_planes_cuda(refs, slot0, mv0, h8, w8, width, height)
+    recs = mc_planes_cuda(refs, slot0, mv0, slot1, mv1, has_l1, h8, w8,
+                          width, height)
     tus = torch.from_numpy(inter_tu_list(
         log2m8.cpu().numpy(), inter8.cpu().numpy().astype(bool))).to(dev)
     qps = [q.to(device=dev, dtype=torch.int32).contiguous()
@@ -610,15 +613,19 @@ def recon_inter_filter(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
                        sao_params, strong: bool, deblock: bool,
                        sao_chroma: bool, boff: int, toff: int, cbo: int,
                        cro: int, width: int, height: int, cs: int,
-                       reference: bool = False):
-    """Reconstruction of one parsed P picture (K18): uni-predicted MC from
-    the per-8x8-cell motion, the dequantised, inverse-transformed residual
+                       reference: bool = False, slot1=None, mv1=None,
+                       has_l1: bool = False):
+    """Reconstruction of one parsed P or B picture (K18): MC from the
+    per-8x8-cell motion of one list or, with has_l1 (a B picture), two,
+    the dequantised, inverse-transformed residual
     of the inter CUs' TUs (TU == CU) added and clipped, the intra CUs
     reconstructed over it from their levels (the seeded K11 scan), then
     deblocking (K7) and SAO (K9).
 
-    refs (R, H, W) / (R, H/2, W/2) uint8 stacks; slot0 (h8*w8,) slots
-    (>= 0), mv0 (h8*w8, 2) quarter-pel; coefs (y, cb, cr) int16 planes;
+    refs (R, H, W) / (R, H/2, W/2) uint8 stacks; slot0 / slot1 (h8*w8,)
+    slots (-1: the list is unused; slot0 is 0 where neither list is
+    used), mv0 / mv1 (h8*w8, 2) quarter-pel (list 1 read only with
+    has_l1); coefs (y, cb, cr) int16 planes;
     log2m8 (h8, w8) CU log2 per cell; qp4 (H/4, W/4) luma QP, qp4_cb/qp4_cr
     (H/8, W/8) chroma QPs with the PPS and slice offsets; inter8 (h8, w8)
     bool, the parsed inter cells; sched the intra CUs' schedule or None;
@@ -629,21 +636,23 @@ def recon_inter_filter(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
     from ..utils.trace import stage
     from .deblock import deblock_frames
     from .saoapply import sao_apply_frames
+    from .mc import no_l1
     dev = coefs[0].device
     plain = dev.type != "cuda" or reference
     if sched is not None:
         sched = sched.to(dev)
+    l1 = (slot1, mv1) if has_l1 else no_l1(slot0, mv0)
     with stage("dec.inter_recon"):
         if plain:
             planes = inter_recon_plain(
-                refs, slot0.to(dev), mv0.to(dev), coefs, log2m8.to(dev),
-                qp4.to(dev), qp4_cb.to(dev), qp4_cr.to(dev), inter8.to(dev),
-                sched, strong, width, height)
+                refs, slot0.to(dev), mv0.to(dev), *(t.to(dev) for t in l1),
+                has_l1, coefs, log2m8.to(dev), qp4.to(dev), qp4_cb.to(dev),
+                qp4_cr.to(dev), inter8.to(dev), sched, strong, width, height)
         else:
             # the TU list is built on the host from the host maps
-            planes = inter_recon_cuda(refs, slot0, mv0, coefs, log2m8, qp4,
-                                      qp4_cb, qp4_cr, inter8, sched, strong,
-                                      width, height)
+            planes = inter_recon_cuda(refs, slot0, mv0, *l1, has_l1, coefs,
+                                      log2m8, qp4, qp4_cb, qp4_cr, inter8,
+                                      sched, strong, width, height)
     if deblock:
         with stage("dec.deblock"):
             planes = deblock_frames(

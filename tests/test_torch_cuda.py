@@ -3,8 +3,11 @@ at small shapes chip_smoke.py does not cover (odd picture sizes, QP 0 and
 51, deblock offsets, SAO on chroma only, sparse random levels), the
 low-delay P kernels (K12, K13, K15, K17 with K14) on a 128x96 IPPP
 encode's inputs, the `fast` preset's (K2 alone, K5 at effort 1, K6 with
-RDOQ and sign hiding, K17 with sign hiding), and the encoder and decoder
-on the kernels against themselves on the plain versions. Marked `cuda`: they skip where torch
+RDOQ and sign hiding, K17 with sign hiding), the B pictures' (K13 with
+the bi cost, K14 with both lists, K15 and K17 with list 1 on a 128x96
+GOP-8 encode's inputs, K18 with both lists on its decode), and the
+encoder and decoder on the kernels against themselves on the plain
+versions. Marked `cuda`: they skip where torch
 finds no CUDA device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -548,3 +551,173 @@ def test_fast_ippp_encode_and_decode_on_the_card(dev):
     dec = HevcDecoder(device=dev)
     assert [frame_md5(f) for f in dec.decode_all(a)] == want
     assert dec.fast_pictures == len(frames)
+
+
+# ------------------------------------------------ B pictures (list 1)
+
+def _b_cfg(**over):
+    return EncoderConfig(**dict(dict(
+        width=128, height=96, preset="fast", latency="offline", rc=0,
+        qp=30), **over))
+
+
+def _slow(n, w, h, seed):
+    """Slowly moving content (b-adapt keeps the GOP-8) with fresh noise
+    in one frame, so that B pictures hold intra CUs."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    out = []
+    for t in range(n):
+        y = (120 + 55 * np.sin((xx + 2 * t) / 29.0)
+             + 35 * np.cos((yy - t) / 23.0))
+        y[(yy - h // 2) ** 2 + (xx - w // 3 - 3 * t) ** 2
+          < (h // 5) ** 2] = 215
+        if t == 6:
+            y[:h // 4, :w // 4] = rng.randint(0, 255, (h // 4, w // 4))
+        y = np.clip(y + rng.randn(h, w) * 2.0, 0, 255).astype(np.uint8)
+        u = np.clip(128 + 27 * np.sin((xx[::2, ::2] + 3 * t) / 37.0), 0, 255)
+        v = np.clip(128 + 27 * np.cos((yy[::2, ::2] - 2 * t) / 41.0), 0, 255)
+        out.append(YUVFrame(y, u.astype(np.uint8), v.astype(np.uint8),
+                            poc=t))
+    return out
+
+
+@pytest.fixture(scope="module")
+def b_calls():
+    """The K13, K15 and K17 calls of a 9-frame GOP-8 encode on the plain
+    versions on the card (the IDR and one GOP-8)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ks265codec_tpu_torch.ops import intercode, interdecide, me2
+    calls = {"me": [], "decide": [], "snap": [], "code": []}
+    spied = [(me2, "me_fused", "me"), (interdecide, "decide_tiers", "decide"),
+             (interdecide, "snap_sads", "snap"),
+             (intercode, "code_inter_frame", "code")]
+    saved = [(m, name, getattr(m, name)) for m, name, _ in spied]
+
+    def spy(key, fn):
+        def g(*a, **k):
+            calls[key].append((a, dict(k)))
+            return fn(*a, **k)
+        return g
+
+    for m, name, key in spied:
+        setattr(m, name, spy(key, getattr(m, name)))
+    try:
+        encode_sequence(_slow(9, 128, 96, 8), _b_cfg(), device="cuda",
+                        reference=True)
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+    return calls
+
+
+def test_bi_motion_search_kernel_matches_plain(dev, b_calls):
+    """K13 with the bi cost: motion, costs, directions and merged costs of
+    the GOP's B pictures."""
+    from ks265codec_tpu_torch.ops import me2
+    calls = [(a, k) for a, k in b_calls["me"] if k.get("bi")]
+    assert len(calls) == 7
+    for a, k in calls:
+        got = me2.me_fused(*a, **dict(k, reference=False))
+        want = me2.me_fused(*a, **dict(k, reference=True))
+        assert len(got) == 4
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_inter_mc_bi_kernel_matches_plain(dev):
+    """K14 with both lists: list-0-only, list-1-only and bi cells, motion
+    reaching past the picture's edges."""
+    from ks265codec_tpu_torch.ops.mc import mc_planes_cuda, mc_planes_plain
+    rng = np.random.RandomState(12)
+    R, ph, pw, pic_w, pic_h = 3, 128, 192, 176, 120
+    refs = [torch.from_numpy(rng.randint(0, 256, (R, ph >> s, pw >> s))
+                             .astype(np.uint8)).to(dev) for s in (0, 1, 1)]
+    h8, w8 = ph // 8, pw // 8
+    kind = rng.randint(0, 3, h8 * w8)
+    slot0 = np.where(kind == 1, -1, rng.randint(0, R, h8 * w8))
+    slot1 = np.where(kind == 0, -1, rng.randint(0, R, h8 * w8))
+    mv0, mv1 = (rng.randint(-90, 90, (h8 * w8, 2)) for _ in range(2))
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (slot0, mv0, slot1, mv1)]
+    got = mc_planes_cuda(refs, *args, True, h8, w8, pic_w, pic_h)
+    want = mc_planes_plain(*refs, *args, True, h8, w8, pic_w, pic_h)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_inter_decide_list1_kernel_matches_plain(dev, b_calls):
+    """K15 on the B pictures' decision and snap calls; their ME records
+    include list-1-only ones (ms0 < 0 <= ms1), which are valid."""
+    from ks265codec_tpu_torch.ops import interdecide
+    calls = [(a, k) for a, k in b_calls["decide"] if k.get("has_l1")]
+    assert calls
+    l1_only = 0
+    for a, k in calls:
+        for ta in a[2]:
+            l1_only += int(((ta["ms0"] < 0) & (ta["ms1"] >= 0)).sum())
+        got = interdecide.decide_tiers(*a, **dict(k, reference=False))
+        want = interdecide.decide_tiers(*a, **dict(k, reference=True))
+        for g, w in zip(got, want):
+            for x, y in zip(g, w):
+                assert torch.equal(x.cpu(), y.cpu())
+    assert l1_only > 0
+    snaps = [(a, k) for a, k in b_calls["snap"] if k.get("has_l1")]
+    assert snaps
+    for a, k in snaps:
+        got = interdecide.snap_sads(*a, **dict(k, reference=False))
+        want = interdecide.snap_sads(*a, **dict(k, reference=True))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_inter_code_list1_kernel_matches_plain(dev, b_calls):
+    """K17 with list 1 on the B pictures: planes, levels, SAO parameters
+    and K14's bi prediction."""
+    from ks265codec_tpu_torch.ops import intercode
+    calls = [(a, k) for a, k in b_calls["code"] if k.get("has_l1")]
+    assert len(calls) == 7 and any(a[6] is not None for a, _ in calls)
+    for a, k in calls:
+        got = intercode.code_inter_frame(*a, **dict(k, reference=False),
+                                         want_pred=True)
+        want = intercode.code_inter_frame(*a, **dict(k, reference=True),
+                                          want_pred=True)
+        for x, y in zip(got[0] + got[1] + got[2] + got[3],
+                        want[0] + want[1] + want[2] + want[3]):
+            assert torch.equal(x, y)
+
+
+def test_gop8_encode_and_decode_on_the_card(dev):
+    """A 9-frame GOP-8 stream on the kernels == on the plain versions;
+    the card's decode of it takes every picture through the fast paths
+    with the encoder's md5s, and K18 with both lists equals its plain
+    version on every B picture."""
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    frames = _slow(9, 128, 96, 8)
+    a, ra = encode_sequence(frames, _b_cfg(), device=dev)
+    b, rb = encode_sequence(frames, _b_cfg(), device=dev, reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in ra]
+    assert want == [frame_md5(r) for r in rb]
+    calls = []
+    orig = wf.recon_inter_filter
+
+    def spy(*args, **k):
+        calls.append((args, k))
+        return orig(*args, **k)
+
+    wf.recon_inter_filter = spy
+    try:
+        dec = HevcDecoder(device=dev)
+        got = [frame_md5(f) for f in dec.decode_all(a)]
+    finally:
+        wf.recon_inter_filter = orig
+    assert got == want and dec.fast_pictures == len(frames)
+    bcalls = [(x, k) for x, k in calls if k.get("has_l1")]
+    assert len(bcalls) == 7
+    for x, k in bcalls:
+        g = wf.recon_inter_filter(*x, **dict(k, reference=False))
+        w = wf.recon_inter_filter(*x, **dict(k, reference=True))
+        for p, q in zip(g, w):
+            assert torch.equal(p, q)

@@ -186,15 +186,17 @@ def test_decoder_matches_reference_decoder(name, monkeypatch):
     assert got == want == enc_md5
 
 
-def test_inter_slices_are_not_ported():
-    """B slices and P slices with explicit weighted prediction raise; a
-    plain P slice is covered."""
+def test_b_slices_are_eligible_weighted_prediction_raises():
+    """B slices take the inter fast path as P slices do; a slice with
+    explicit weighted prediction raises (not ported)."""
     dec = HevcDecoder(device="cpu")
     enc = HevcEncoder(EncoderConfig(width=W, height=H, preset="ultrafast",
                                     intra_period=1), device="cpu")
     b = types.SimpleNamespace(slice_type=B_SLICE, weights=None)
-    with pytest.raises(NotImplementedError, match="B slices"):
-        dec._fast_eligible(enc.sps, enc.pps, b)
+    assert dec._fast_eligible(enc.sps, enc.pps, b)
+    wp = types.SimpleNamespace(slice_type=B_SLICE, weights=[[], []])
+    with pytest.raises(NotImplementedError, match="weighted prediction"):
+        dec._fast_eligible(enc.sps, enc.pps, wp)
     wp = types.SimpleNamespace(slice_type=P_SLICE, weights=[[], []])
     with pytest.raises(NotImplementedError, match="weighted prediction"):
         dec._fast_eligible(enc.sps, enc.pps, wp)

@@ -119,3 +119,18 @@ def test_default_device_is_cuda():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             HevcEncoder(EncoderConfig(**_cfg("")))
+
+
+def test_decide_effort_above_one_is_effort_one():
+    """decide_effort 2 is accepted and codes as effort 1, as in the
+    reference (any nonzero effort takes the effort-1 tier); the field
+    stays as configured."""
+    frames = [YUVFrame(*p, poc=i) for i, p in enumerate(_planes()[:2])]
+    streams = []
+    for effort in (1, 2):
+        kw = dict(_cfg(""), preset="veryfast", decide_effort=effort)
+        enc = HevcEncoder(EncoderConfig(**kw), device="cpu")
+        assert enc.cfg.decide_effort == effort
+        streams.append(encode_sequence(frames, EncoderConfig(**kw),
+                                       device="cpu")[0])
+    assert streams[0] == streams[1]

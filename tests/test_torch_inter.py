@@ -288,7 +288,7 @@ def test_stream_holds_p_pictures_with_intra_cus(ref, port):
 
 
 @pytest.mark.parametrize("over,what", [
-    (dict(latency="offline", bframes=3), "B pictures"),
+    (dict(partitions=1), "inter partitions"),
     (dict(aq_mode=1), "adaptive quantisation"),
     (dict(refs=2), "refs > 1"),
     (dict(tiles="2x1"), "tiles with inter coding"),

@@ -1,6 +1,6 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Six runs, each profiled the same way after a warm-up: the encode of the
+Eight runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
 QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
 the decode of the stream it writes, the low-delay P encode of
@@ -10,13 +10,16 @@ frames: one IDR, then P pictures), the decode of that IPPP stream, and
 bench.py's inter leg (the same with the fast preset: RDOQ and sign
 hiding, the effort-1 decision, SAO tier 3), and chip_smoke.py's fast
 all-intra encode (the main path's configuration with the fast preset, 16
-frames).
+frames), then chip_smoke.py's B path (1280x720, fast, offline, QP 27, the
+default hierarchical GOP-8, 25 frames: one IDR, three GOP-8s) and the
+decode of its stream.
 Each is run once plain for the fps, once with the stage trace on (host
 wall time per stage: for the all-intra encode upload, decide, code,
 deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
 and slice writing; for the decode the reconstruction, deblocking and SAO
 of the fast path; for the P encode the inter engine's stages `inter.*`
-and slice writing; for the P decode the fast path's preparation, its
+and slice writing (B pictures too, with `la.features` the lookahead's
+batched reads); for the P and B decodes the fast path's preparation, its
 reconstruction `dec.inter_recon` (K14, the inter TUs' residual, K11),
 `dec.deblock` and `dec.sao`), once under
 torch.profiler for the device time of every kernel and the device's busy
@@ -65,6 +68,18 @@ def encode_ippp(frames, preset: str = "ultrafast"):
     enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset=preset,
                                     latency="zerolatency", rc=0, qp=30,
                                     intra_period=0, frame_rate=30))
+    out = []
+    for f in frames:
+        out += enc.encode_frame(f)
+    out += enc.flush()
+    torch.cuda.synchronize()
+    return out
+
+
+def encode_b(frames):
+    enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="fast",
+                                    latency="offline", rc=0, qp=27,
+                                    frame_rate=30))
     out = []
     for f in frames:
         out += enc.encode_frame(f)
@@ -154,6 +169,12 @@ def main() -> int:
     fast16 = frames[:16]
     encode(fast16, "fast")                              # warm-up
     profile("fast encode", lambda: encode(fast16, "fast"), len(fast16))
+    bclip = frames[:25]
+    encode_b(frames[:9])                                # warm-up
+    profile("B encode", lambda: encode_b(bclip), len(bclip))
+    bstream = b"".join(e.data for e in encode_b(bclip))
+    decode(bstream)                                     # warm-up
+    profile("B decode", lambda: decode(bstream), len(bclip))
     return 0
 
 
