@@ -101,7 +101,25 @@ port's package is not beside it. Phases, each printed as one line:
      reference=True, then K18 with both lists against its plain version
      on the B picture with the most intra CUs; (d) app_encoder -preset
      fast -latency offline on 10 frames writes HevcEncoder's bytes and
-     app_decoder -md5 1 prints its md5s.
+     app_decoder -md5 1 prints its md5s;
+ 15. cu_qp_delta and explicit weighted prediction on a luma fade (the
+     synthetic frames, luma 5% darker a frame): (a) a 9-frame encode of
+     the VOD configuration (fast, offline GOP-8, QP 27, cutree, aq_mode 2,
+     weightp) records the inputs of K12 and K17; K12 with the 8x8
+     variance, K17 with the effective-QP chain and weights and K14
+     weighted on the first P picture with weights, the chain alone on its
+     levels, and K17 on the first B picture under cu_qp_delta are held
+     against their plain versions; (b) the same 9 frames on the plain
+     versions give the same stream and recons, and the pictures with
+     weights, the CTBs with a nonzero offset and the cells the chain
+     moved are printed (each must be above 0); (c) 17 frames timed with
+     the counts reset, decoded on the card (timed) with the encoder's
+     md5s, and K18 weighted (with cu_qp_delta QPs) against its plain
+     version; (d) the live configuration (fast, zerolatency, QP 30,
+     intra_period 0, aq_mode 1, weightp) on 16 frames timed and decoded;
+     (e) all-intra AQ (fast, aq_mode 1, tiles 8x6) on 4 frames against the
+     plain versions and decoded; (f) app_encoder -preset fast -aq 2 and
+     app_decoder -md5 1.
 K2 runs inlined in K6 and K17: its launches are those of the K6 and K17
 kernels that ran its code (`intra_level_k2`, `inter_tu_class_k2`).
 The line before the last is the JSON kernel table with the fps of every
@@ -143,6 +161,18 @@ BFRAME = dict(width=1280, height=720, preset="fast", latency="offline",
               rc=0, qp=27, frame_rate=30)
 B_ROWS = ("me_bi", "inter_mc_bi", "inter_decide_bi", "inter_code_bi",
           "inter_recon_bi")
+# cu_qp_delta and explicit weighted prediction on a luma fade: the VOD
+# configuration (the B one with CU-tree, aq_mode 2 and weightp), the live
+# one (bench.py's inter leg with aq_mode 1 and weightp) and all-intra AQ
+AQWP_FRAMES, AQWP_LIVE_FRAMES = 17, 16
+AQWP_VOD = dict(BFRAME, cutree=1, aq_mode=2, weightp=True)
+AQWP_LIVE = dict(FAST_INTER, rc=0, aq_mode=1, weightp=True)
+AQWP_INTRA = dict(width=1280, height=720, preset="fast", rc=0, qp=27,
+                  intra_period=1, tiles="8x6", aq_mode=1, frame_rate=30)
+AQWP_ROWS = ("lookahead_var", "inter_code_dqp_wp", "inter_mc_wp",
+             "inter_recon_wp")
+# the three launches of K17's effective-QP chain (`ks_inter_eff_qp`)
+EFF_QP = ["inter_eff_qp_ctb", "inter_eff_qp_scan", "inter_eff_qp_apply"]
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
 # SMs x 64 INT32 lanes per SM (Hopper SM) x 1.98 GHz boost clock, the clock
 # behind the data sheet's 67 TFLOP/s FP32. FP32 rate: 132 SMs x 128 FP32
@@ -749,18 +779,32 @@ def inter_code_phase(a, k, gk, gp, name: str, counters: list):
     return row, sao_stats
 
 
-def k18_phase(calls: list, card: str, bi: bool = False) -> dict:
+def k18_phase(calls: list, card: str, bi: bool = False,
+              wp: bool = False) -> dict:
     """K18 (`recon_inter_filter`: K14, `ks_inter_recon`, the seeded K11, K7,
     K9) against its plain version on the recorded P picture (bi: B picture,
-    both lists) of the stream with the most intra CUs; returns its table
-    row."""
+    both lists) of the stream with the most intra CUs, or (wp) on the
+    decoded P picture with explicit weights with the most intra CUs;
+    returns its table row."""
     from ks265codec_tpu_torch.ops import wavefront as wf
-    kind = "B" if bi else "P"
-    with_intra = [(int((np.asarray(c[0][9].recs)[:, wf.VALID] == 1).sum()), i)
-                  for i, c in enumerate(calls) if c[0][9] is not None
-                  and bool(c[1].get("has_l1")) == bi]
+    kind = "weighted P" if wp else ("B" if bi else "P")
+
+    def n_intra(c):
+        sched = c[0][9]
+        return 0 if sched is None else \
+            int((np.asarray(sched.recs)[:, wf.VALID] == 1).sum())
+
+    if wp:
+        with_intra = [(n_intra(c), i) for i, c in enumerate(calls)
+                      if c[1].get("wts0") is not None
+                      and np.asarray(c[1]["wts0"][0]).any()]
+    else:
+        with_intra = [(n_intra(c), i) for i, c in enumerate(calls)
+                      if c[0][9] is not None
+                      and bool(c[1].get("has_l1")) == bi]
     if not with_intra:
-        raise AssertionError(f"no decoded {kind} picture holds intra CUs")
+        raise AssertionError(f"no decoded {kind} picture holds "
+                             f"{'weights' if wp else 'intra CUs'}")
     n_intra, i = max(with_intra)
     a, k = calls[i]
     gk = wf.recon_inter_filter(*a, **dict(k, reference=False))
@@ -790,10 +834,11 @@ def k18_phase(calls: list, card: str, bi: bool = False) -> dict:
                                         inter8.numpy().astype(bool)):
         if bool(cf[pl][y:y + n, x:x + n].any()):
             ops += n * n * (2 * n + 4)
-    recs = np.asarray(sched.recs)
-    sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
-    ops += float(np.sum(sizes ** 2 * (2 * sizes + 10)
-                        + 2 * (sizes / 2) ** 2 * (sizes + 10)))
+    if sched is not None:
+        recs = np.asarray(sched.recs)
+        sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
+        ops += float(np.sum(sizes ** 2 * (2 * sizes + 10)
+                            + 2 * (sizes / 2) ** 2 * (sizes + 10)))
     if a[14]:                                  # deblock
         seg = int((bs_v > 0).sum() + (bs_h > 0).sum())
         seg16 = int((bs_v[:, ::4] == 2).sum() + (bs_h[::4, :] == 2).sum())
@@ -808,13 +853,14 @@ def k18_phase(calls: list, card: str, bi: bool = False) -> dict:
           f"intra CUs): planes equal, kernel {ms:.3f} ms (K14, ks_inter_recon,"
           f" the seeded K11, K7 and K9), plain {plain:.3f} ms, bound "
           f"{bnd:.4f} ms ({by})", flush=True)
-    return dict(name="inter_recon_bi" if bi else "inter_recon",
+    return dict(name=("inter_recon_wp" if wp else
+                      "inter_recon_bi" if bi else "inter_recon"),
                 route="cuda",
                 source="ks265codec_tpu_torch/csrc/inter_recon.cu",
                 replaces="ks265codec_tpu/ops/wavefront.py:549",
                 max_abs_err=max_abs_err(gk, gp), ms=ms, plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=None,
-                counters=["inter_recon"])
+                counters=["inter_recon_wp" if wp else "inter_recon"])
 
 
 def decide_ops(stats, tier: int, prm) -> float:
@@ -1219,6 +1265,373 @@ def bframe_path(yuv, card: str, check_counts, rows: dict) -> dict:
           f"{''.join(e.slice_type for e in cefs)}) == HevcEncoder, "
           "app_decoder -md5 1 == encoder md5s", flush=True)
     return dict(bframe_fps=bframe_fps, bframe_decode_fps=bframe_decode_fps)
+
+
+def fade_frames(yuv, n: int) -> list:
+    """bench.py's synthetic frames with the luma 5% darker each frame, a
+    fade that explicit weighted prediction codes."""
+    from ks265codec_tpu_torch.utils.yuv import YUVFrame
+    return [YUVFrame(np.clip(np.rint(f.y * 0.95 ** t), 0, 255)
+                     .astype(np.uint8), f.u, f.v, poc=t)
+            for t, f in enumerate(yuv[:n])]
+
+
+def aqwp_path(yuv, card: str, check_counts, rows: dict) -> dict:
+    """Phase 15, cu_qp_delta (AQ, CU-tree, K17's effective-QP chain) and
+    explicit weighted prediction on a luma fade: (a) a 9-frame encode of
+    the VOD configuration (fast, offline GOP-8, QP 27, cutree, aq_mode 2,
+    weightp) on the kernels records the lookahead's and K17's inputs; K12
+    with the variance, K17 with the chain and weights and K14 weighted on
+    the first P picture with weights, the chain alone on its levels and
+    K17 on the first B picture under cu_qp_delta are held against their
+    plain versions; (b) the same 9 frames on the plain versions give the
+    same stream and recons; (c) 17 frames timed with the launch counts
+    reset, then the card's decode of that stream, timed, with the
+    encoder's md5s, and K18 weighted against its plain version; (d) the
+    live configuration (fast, zerolatency, QP 30, intra_period 0,
+    aq_mode 1, weightp) on 16 frames, timed, and decoded; (e) all-intra
+    AQ (fast, aq_mode 1, tiles 8x6) on 4 frames against the plain
+    versions and decoded; (f) app_encoder -preset fast -aq 2 and
+    app_decoder. Adds the rows to `rows`; returns the legs' fps."""
+    from ks265codec_tpu_torch.cli import app_decoder, app_encoder
+    from ks265codec_tpu_torch.decode.decoder import HevcDecoder
+    from ks265codec_tpu_torch.encode import encoder as tenc
+    from ks265codec_tpu_torch.encode.config import EncoderConfig
+    from ks265codec_tpu_torch.encode.encoder import HevcEncoder
+    from ks265codec_tpu_torch.ops import _build
+    from ks265codec_tpu_torch.ops import intercode as tic
+    from ks265codec_tpu_torch.ops import lookahead as tla
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    from ks265codec_tpu_torch.ops.mc import (mc_planes_cuda, mc_planes_plain,
+                                             no_l1)
+    fade = fade_frames(yuv, AQWP_FRAMES)
+    seen = {"weighted": 0}
+    wp_fn = tenc.decide_weightp
+
+    def wp_spy(*a):
+        w = wp_fn(*a)
+        seen["weighted"] += w is not None
+        return w
+
+    def encode(cfg, frames_in, reference=False):
+        enc = HevcEncoder(EncoderConfig(**cfg), reference=reference)
+        efs = []
+        for fr in frames_in:
+            efs += enc.encode_frame(fr)
+        efs += enc.flush()
+        seen["enc"] = enc
+        return efs
+
+    def nonzero_dqp(enc):
+        return int(sum((fa.dqp_ctu != 0).sum()
+                       for fa in enc.la.analyses.values()
+                       if fa.dqp_ctu is not None))
+
+    def row(*a, **k):
+        return table_row(rows, *a, **k)
+
+    def decode(stream, n, what, enc_md5):
+        """A recording decode (K18's inputs), then the timed one."""
+        k18_calls, k18_fn = [], wf.recon_inter_filter
+
+        def k18_spy(*a, **k):
+            k18_calls.append((a, k))
+            return k18_fn(*a, **k)
+
+        wf.recon_inter_filter = k18_spy
+        try:
+            HevcDecoder().decode_all(stream)
+        finally:
+            wf.recon_inter_filter = k18_fn
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        dec = HevcDecoder()
+        out = dec.decode_all(stream)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        if dec.fast_pictures != n or len(out) != n:
+            raise AssertionError(f"{what} decode: {dec.fast_pictures} of "
+                                 f"{len(out)} pictures took the fast paths")
+        if md5s(out) != enc_md5:
+            raise AssertionError(f"{what} decode: frames differ from the "
+                                 "encoder's reconstruction")
+        return n / secs, counts, k18_calls
+
+    # ---- 15a: the kernels on the inputs the 9-frame VOD encode gives them
+    calls = {}
+    spied = [(tla, "frame_features_batch"), (tic, "code_inter_frame"),
+             (tic, "effective_qp4")]
+    saved = [(m, name, getattr(m, name)) for m, name in spied]
+
+    def spy(name, fn):
+        def g(*a, **k):
+            out = fn(*a, **k)
+            # the chain's output too: the QPs K7 read
+            calls.setdefault(name, []).append(
+                (a, k, out) if name == "effective_qp4" else (a, k))
+            return out
+        return g
+
+    for m, name, fn in saved:
+        setattr(m, name, spy(name, fn))
+    tenc.decide_weightp = wp_spy
+    try:
+        ka = encode(AQWP_VOD, fade[:9])
+    finally:
+        for m, name, fn in saved:
+            setattr(m, name, fn)
+        tenc.decide_weightp = wp_fn
+    torch.cuda.synchronize()
+    weighted9, dqp9 = seen["weighted"], nonzero_dqp(seen["enc"])
+    code = calls["code_inter_frame"]
+    moved9 = sum(int((out.cpu().int() != a[0].cpu().int()).sum())
+                 for a, _, out in calls["effective_qp4"])
+
+    # K12 with the variance, on the lookahead's largest batch
+    a, k = max(calls["frame_features_batch"], key=lambda c: c[0][0].shape[0])
+    curs, prevs, want_var, want_tree = a
+    if not (want_var and want_tree):
+        raise AssertionError("the VOD lookahead ran without the variance or "
+                             "the tree maps")
+    vk, vp = tla.block_var_cuda(curs), tla.block_var_plain(curs)
+    pk = tla.frame_features_batch(curs, prevs, True, True)
+    pp = tla.frame_features_batch(curs, prevs, True, True, reference=True)
+    torch.cuda.synchronize()
+    if not torch.equal(vk.cpu(), vp.cpu()) or not torch.equal(pk.cpu(),
+                                                              pp.cpu()):
+        raise AssertionError("K12 variance: kernel and plain differ")
+    ms = cuda_ms(lambda: tla.block_var_cuda(curs))
+    plain = cuda_ms(lambda: tla.block_var_plain(curs), warm=False)
+    nb = curs.numel() // 64
+    # bytes: the half planes in, the float32 map out; operations: per
+    # sample the integer sum (int32), the float32 subtraction and fused
+    # multiply-add, and per block the 7 lane additions and the scaling
+    bnd, by = row("lookahead_var", "lookahead.cu", "ops/lookahead.py:33",
+                  max_abs_err(vk, vp), ms, plain, curs.numel() + 4 * nb,
+                  curs.numel(), ["la_var"], fp_ops=2 * curs.numel() + 9 * nb)
+    print(f"phase K12 variance ({tuple(curs.shape)} half planes, {nb} "
+          f"blocks): map and packed rows equal, kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+
+    # K17 with the chain and weights, on the first P picture with weights
+    wpi = [(a, k) for a, k in code if k.get("wts0") is not None
+           and np.asarray(k["wts0"][0]).any()]
+    if not wpi:
+        raise AssertionError("no P picture of the VOD fade carried weights")
+    a, k = wpi[0]
+    if k.get("dqp") is None:
+        raise AssertionError("the weighted P picture ran without the chain")
+    gk, gp = k17_outputs(a, k, "K17 inter code (weights, cu_qp_delta)")
+    qp4 = a[8]
+    pic_w, pic_h = a[12:14]
+    zin4, zcu4, sqp, wpp, cs = k["dqp"]
+    ek = tic.effective_qp4_cuda(qp4, gk[1], zin4, zcu4, sqp, wpp, cs, pic_w,
+                                pic_h)
+    ep = tic.effective_qp4(qp4, gp[1], zin4, zcu4, sqp, wpp, cs, pic_w,
+                           pic_h, reference=True)
+    if not torch.equal(ek.cpu().int(), ep.cpu().int()):
+        raise AssertionError("K17's effective-QP chain: kernel and plain "
+                             "differ")
+    moved = int((ep.cpu().int() != qp4.cpu().int()).sum())
+    rows["inter_code_dqp_wp"], _ = inter_code_phase(
+        a, k, gk, gp, "inter_code_dqp_wp",
+        EFF_QP + ["inter_tu_class_k2", "inter_gate", "inter_finish",
+                  "inter_bs"])
+    rows["inter_code_dqp_wp"]["required"] = EFF_QP
+    refs, slot0, mv0 = a[1:4]
+    h8, w8 = a[10:12]
+    dev = refs[0].device
+    mca = (refs, slot0.to(dev), mv0.to(dev), *no_l1(slot0.to(dev),
+                                                    mv0.to(dev)),
+           False, h8, w8, pic_w, pic_h, k["wts0"], k["wts1"])
+    mk = mc_planes_cuda(*mca)
+    mp = mc_planes_plain(*refs, *mca[1:])
+    for c, u, v, w in zip("YUV", mk, mp, gk[3]):
+        if not torch.equal(u, v) or not torch.equal(u, w):
+            raise AssertionError(f"K14 weighted: plane {c} differs")
+    ms = cuda_ms(lambda: mc_planes_cuda(*mca))
+    plain = cuda_ms(lambda: mc_planes_plain(*refs, *mca[1:]), warm=False)
+    npx = a[0][0].numel() * 1.5
+    # operations: the separable filters this motion needs, and about 6 a
+    # sample for the weighted combine (multiply, round, shift, offset,
+    # clip); bytes: the reference read, the prediction written, the motion
+    bnd, by = row("inter_mc_wp", "inter_code.cu", "ops/mc.py:141",
+                  max_abs_err(mk, mp), ms, plain, 2 * npx + 12 * h8 * w8,
+                  planes_mc_ops(slot0, mv0) + 3 * npx, ["inter_mc_wp"])
+    flags = np.asarray(k["wts0"][0])
+    print(f"phase K14 weighted ({h8 * w8} cells, weights "
+          f"{np.asarray(k['wts0'][1])[flags].tolist()} offsets "
+          f"{np.asarray(k['wts0'][2])[flags].tolist()}): kernel planes == "
+          f"plain == K17's prediction, kernel {ms:.3f} ms, plain "
+          f"{plain:.3f} ms, bound {bnd:.4f} ms ({by}); K17's chain equal, "
+          f"{moved} cells off their planned QP", flush=True)
+    bq = [(a, k) for a, k in code if k.get("has_l1")
+          and k.get("dqp") is not None]
+    if not bq:
+        raise AssertionError("no B picture ran under cu_qp_delta")
+    k17_outputs(*bq[0], "K17 inter code (B, cu_qp_delta)")
+    print("phase K17 (B, cu_qp_delta): recon, levels, SAO parameters and "
+          "prediction of the first B picture equal", flush=True)
+
+    # ---- 15b: the same 9 frames on the plain versions
+    kb = encode(AQWP_VOD, fade[:9], reference=True)
+    if b"".join(e.data for e in ka) != b"".join(e.data for e in kb) or \
+            md5s(e.recon for e in ka) != md5s(e.recon for e in kb):
+        raise AssertionError("9-frame VOD fade stream or recon: kernels and "
+                             "plain versions differ")
+    print(f"phase AQ/WP kernels vs plain stream: 9 frames "
+          f"({sum(len(e.data) for e in ka)} bytes, slice types "
+          f"{''.join(e.slice_type for e in ka)}) identical, recon md5s "
+          f"equal; {weighted9} pictures with weights, {dqp9} CTBs with a "
+          f"nonzero offset, {moved9} cells moved by the chain", flush=True)
+    if not (weighted9 > 0 and dqp9 > 0 and moved9 > 0):
+        raise AssertionError("the VOD fade engaged no weights, no offsets or "
+                             "no chain move")
+
+    # ---- 15c: the timed VOD leg (the 9-frame encode was its warm-up), then
+    # its decode on the card
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    aefs = encode(AQWP_VOD, fade)
+    torch.cuda.synchronize()
+    asecs = time.perf_counter() - t0
+    acounts = dict(_build.launches)
+    for key in ("lookahead_var", "inter_code_dqp_wp", "inter_mc_wp"):
+        rows[key]["launches"] = check_counts(rows[key]["required"], acounts,
+                                             "AQ/WP VOD path")
+    check_counts(["decide_pass_a", "intra_level_k2", "deblock_edges",
+                  "sao_stats", "sao_apply", "la_features", "me_bi_cost8",
+                  "inter_decide", "inter_mc_bi", "sao_decide"], acounts,
+                 "AQ/WP VOD path")
+    arec = sorted(aefs, key=lambda e: e.display_idx)
+    astream = b"".join(e.data for e in aefs)
+    aq_wp_bframe_fps = len(aefs) / asecs
+    print(f"phase AQ/WP VOD path: {len(aefs)} frames {W}x{H} (fast offline "
+          f"QP 27, cutree, aq_mode 2, weightp, luma fade) in {asecs:.3f} s "
+          f"= {aq_wp_bframe_fps:.3f} fps on {card}; stream {len(astream)} "
+          f"bytes; slice types {''.join(e.slice_type for e in aefs)}; "
+          f"launches {acounts}", flush=True)
+    fps_d, dcounts, k18_calls = decode(astream, AQWP_FRAMES, "AQ/WP VOD",
+                                       md5s(e.recon for e in arec))
+    check_counts(["inter_mc_wp", "inter_mc_bi", "inter_recon",
+                  "inter_recon_wp"], dcounts,
+                 "AQ/WP VOD decode")
+    print(f"phase AQ/WP VOD decode: {AQWP_FRAMES} frames in "
+          f"{AQWP_FRAMES / fps_d:.3f} s = {fps_d:.3f} fps on {card}; all "
+          f"through the fast paths, md5 equal to the encoder's recon; "
+          f"launches {dcounts}", flush=True)
+    rows["inter_recon_wp"] = k18_phase(k18_calls, card, wp=True)
+    rows["inter_recon_wp"]["launches"] = dcounts["inter_recon_wp"]
+
+    # ---- 15d: the live leg (low-delay P, aq_mode 1, weightp)
+    encode(AQWP_LIVE, fade[:4])                          # warm-up
+    seen["weighted"] = 0
+    tenc.decide_weightp = wp_spy
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        befs = encode(AQWP_LIVE, fade[:AQWP_LIVE_FRAMES])
+    finally:
+        tenc.decide_weightp = wp_fn
+    torch.cuda.synchronize()
+    bsecs = time.perf_counter() - t0
+    bcounts = dict(_build.launches)
+    check_counts(["la_var", "inter_mc_wp"] + EFF_QP, bcounts,
+                 "AQ/WP live path")
+    weighted_b, dqp_b = seen["weighted"], nonzero_dqp(seen["enc"])
+    bstream = b"".join(e.data for e in befs)
+    aq_wp_ippp_fps = len(befs) / bsecs
+    print(f"phase AQ/WP live path: {len(befs)} frames {W}x{H} (fast "
+          f"zerolatency QP 30, aq_mode 1, weightp, luma fade) in "
+          f"{bsecs:.3f} s = {aq_wp_ippp_fps:.3f} fps on {card}; stream "
+          f"{len(bstream)} bytes; {weighted_b} pictures with weights, "
+          f"{dqp_b} CTBs with a nonzero offset; launches {bcounts}",
+          flush=True)
+    if not (weighted_b > 0 and dqp_b > 0):
+        raise AssertionError("the live fade engaged no weights or offsets")
+    fps_bd, bdcounts, _ = decode(bstream, AQWP_LIVE_FRAMES, "AQ/WP live",
+                                 md5s(e.recon for e in befs))
+    check_counts(["inter_mc_wp", "inter_recon_wp"], bdcounts, "AQ/WP live "
+                 "decode")
+    print(f"phase AQ/WP live decode: {AQWP_LIVE_FRAMES} frames = "
+          f"{fps_bd:.3f} fps on {card}, md5 equal to the encoder's recon; "
+          f"launches {bdcounts}", flush=True)
+
+    # ---- 15e: all-intra AQ (the batch path with per-CTB QPs and the
+    # effective QPs of the host walk), against the plain versions
+    _build.reset_launches()
+    cefs = encode(AQWP_INTRA, fade[:4])
+    ccounts = dict(_build.launches)
+    check_counts(["la_var", "decide_pass_a", "intra_level_k2"], ccounts,
+                 "AQ all-intra")
+    dqp_c = nonzero_dqp(seen["enc"])
+    cp = encode(AQWP_INTRA, fade[:4], reference=True)
+    cstream = b"".join(e.data for e in cefs)
+    if cstream != b"".join(e.data for e in cp) or \
+            md5s(e.recon for e in cefs) != md5s(e.recon for e in cp):
+        raise AssertionError("all-intra AQ: kernels and plain versions "
+                             "differ")
+    cdec = HevcDecoder()
+    if md5s(cdec.decode_all(cstream)) != md5s(e.recon for e in cefs) or \
+            cdec.fast_pictures != 4:
+        raise AssertionError("all-intra AQ decode: md5s differ from the "
+                             "encoder's")
+    print(f"phase AQ all-intra: 4 frames (fast, aq_mode 1, tiles 8x6, "
+          f"{len(cstream)} bytes, {dqp_c} CTBs with a nonzero offset) "
+          f"kernel stream == plain, decoded on the card with the encoder's "
+          f"md5s", flush=True)
+    if dqp_c <= 0:
+        raise AssertionError("all-intra AQ engaged no offsets")
+
+    # ---- 15f: the CLIs with -aq 2
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        (work / "in.yuv").write_bytes(b"".join(f.tobytes()
+                                               for f in fade[:4]))
+        argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
+                "-frms", "4", "-b", str(work / "aq.265"), "-preset", "fast",
+                "-aq", "2", "-qp", "27", "-fr", "30"]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = app_encoder.main(argv)
+        check_counts(["la_var"] + EFF_QP, _build.launches,
+                     "app_encoder -aq 2")
+        ccfg = app_encoder.cfg_from_args(
+            app_encoder.build_parser().parse_args(argv))
+        enc = HevcEncoder(ccfg)
+        if not enc.pps.cu_qp_delta_enabled:
+            raise AssertionError("app_encoder -aq 2: cu_qp_delta off")
+        qefs = []
+        for fr in fade[:4]:
+            qefs += enc.encode_frame(fr)
+        qefs += enc.flush()
+        want = b"".join(e.data for e in qefs)
+        if rc != 0 or (work / "aq.265").read_bytes() != want:
+            raise AssertionError("app_encoder -aq 2: bytes differ from "
+                                 "HevcEncoder's")
+        want_md5 = [",".join(m) for m in md5s(
+            e.recon for e in sorted(qefs, key=lambda e: e.display_idx))]
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc = app_decoder.main(["-b", str(work / "aq.265"), "-md5", "1"])
+        dec_lines = [ln.split()[3] for ln in out.getvalue().splitlines()
+                     if ln.startswith("POC ")]
+        if rc != 0 or dec_lines != want_md5:
+            raise AssertionError("app_decoder -md5 1 (-aq 2): lines differ "
+                                 "from the encoder's md5s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase CLI AQ: app_encoder -preset fast -aq 2 4 frames "
+          f"({len(want)} bytes) == HevcEncoder, app_decoder -md5 1 == "
+          "encoder md5s", flush=True)
+    return dict(aq_wp_bframe_fps=aq_wp_bframe_fps,
+                aq_wp_bframe_decode_fps=fps_d,
+                aq_wp_ippp_fps=aq_wp_ippp_fps,
+                aq_wp_ippp_decode_fps=fps_bd)
 
 
 def main() -> int:
@@ -2068,10 +2481,13 @@ def main() -> int:
     # ---- phase 14: B pictures (the offline GOP-8, fast, QP 27)
     bfps = bframe_path(yuv, card, check_counts, rows)
 
+    # ---- phase 15: cu_qp_delta and explicit weighted prediction
+    bfps.update(aqwp_path(yuv, card, check_counts, rows))
+
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
                 "intra_recon") + INTER_ROWS + ("inter_recon",) + FAST_ROWS \
-            + B_ROWS:
+            + B_ROWS + AQWP_ROWS:
         r = rows[key]
         r.pop("counters")
         r.pop("required", None)

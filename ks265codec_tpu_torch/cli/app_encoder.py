@@ -13,7 +13,9 @@ cover yet raise NotImplementedError naming what is missing. At the
 presets ultrafast to fast the flag defaults (`-latency offline -bframes
 7 -iper 64`) encode hierarchical GOP-8 B pictures, `-latency
 livestreaming` GOP-4, `-latency zerolatency -iper 0` low-delay P; `-iper
-1` encodes all-intra at any preset; the default `-rdoq 1` runs RDOQ.
+1` encodes all-intra at any preset; the default `-rdoq 1` runs RDOQ;
+`-aq 1..3` (adaptive quantisation, cu_qp_delta) runs in every one of
+these structures.
 """
 
 from __future__ import annotations

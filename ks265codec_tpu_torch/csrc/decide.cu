@@ -416,20 +416,32 @@ __global__ void split_kernel(const float* cost8, const float* cost16,
           }
         g[wy * gw + wx] = acc;
       }
-    // rows summed in order, then the row sums by halving (zero padded)
-    float rows[32];
-    int p2 = 1;
-    while (p2 < gh) p2 <<= 1;
-    for (int r = 0; r < p2; r++) {
+    // then the order of the reference backend's vectorised loop at this
+    // shape (ops/decide._frame_sum)
+    float rows[8];
+    if (gw > 8) {
       float acc = 0.f;
-      if (r < gh) {
-        acc = g[r * gw];
-        for (int c = 1; c < gw; c++) acc = acc + g[r * gw + c];
+      for (int r = 0; r < gh; r++) {
+        for (int k = 0; k < 8; k++) rows[k] = k == 0 ? acc : 0.f;
+        for (int c = 0; c < gw; c++) rows[c % 8] = rows[c % 8] + g[r * gw + c];
+        for (int h = 4; h >= 1; h >>= 1)
+          for (int i = 0; i < h; i++) rows[i] = rows[i] + rows[i + h];
+        acc = rows[0];
       }
-      rows[r] = acc;
+      rows[0] = acc;
+    } else if (gh == 4 || gh == 8) {
+      for (int r = 0; r < gh; r++) {
+        float acc = g[r * gw];
+        for (int c = 1; c < gw; c++) acc = acc + g[r * gw + c];
+        rows[r] = acc;
+      }
+      for (int h = gh / 2; h >= 1; h >>= 1)
+        for (int i = 0; i < h; i++) rows[i] = rows[i] + rows[i + h];
+    } else {
+      float acc = g[0];
+      for (int i = 1; i < gh * gw; i++) acc = acc + g[i];
+      rows[0] = acc;
     }
-    for (int h = p2 / 2; h >= 1; h >>= 1)
-      for (int i = 0; i < h; i++) rows[i] = rows[i] + rows[i + h];
     cplx[f] = rows[0];
   }
 }

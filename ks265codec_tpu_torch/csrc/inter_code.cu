@@ -1,14 +1,16 @@
 // K17 — inter coding of one P or B picture, replacing
 // ks265codec_tpu/ops/intercode.py::_inter_code_core (`_code_tu_class`,
 // the chroma branch, the zero-forcing gate, the final levels and recon,
-// the boundary strengths) without weighted prediction or cu_qp_delta.
+// the boundary strengths, the weighted MC and `_effective_qp4`).
 // The seeded intra scan and the deblocking filter are the K6 and K7
 // launches of csrc/intra_scan.cu and csrc/deblock.cu.
 //
 //   ks_inter_mc       K14: the whole picture's prediction, one thread
 //                     block per 8x8 cell (its luma and two 4x4 chroma
 //                     cells) from the cell's motion in one or two lists
-//                     (mc.cuh's `ks_mc_pred`; list 1 a template argument);
+//                     (mc.cuh's `ks_mc_pred`, or `ks_mc_pred_wp` with
+//                     explicit weights; list 1 and the weights are
+//                     template arguments);
 //   ks_inter_tu_class one thread block per TU of a size class: residual
 //                     against the prediction, forward transform, inter
 //                     deadzone quantisation and the signs through K2's
@@ -24,7 +26,16 @@
 //                     and drop = (d_skip - d_coded) <= lam * (bits + 10);
 //   ks_inter_finish   one thread block per TU: levels (zero if dropped),
 //                     recon = clip(pred + residual), the luma cbf per 4x4;
-//   ks_inter_bs       one thread per 4x4 cell: spec 8.7.2.4 strengths.
+//   ks_inter_bs       one thread per 4x4 cell: spec 8.7.2.4 strengths;
+//   ks_inter_eff_qp   under cu_qp_delta, the decoder's effective QP per
+//                     4x4 cell (`_effective_qp4`): one thread block per
+//                     CTB finds its first CU with coefficients (any plane)
+//                     and the planned QP of its last in-picture cell, one
+//                     warp per chain (a CTB row with WPP, else the
+//                     picture) scans the CTBs with coefficients, and one
+//                     thread per cell takes the predicted QP before the
+//                     first coded CU, else its planned QP. Integer and
+//                     exact.
 //
 // Bound: the transforms (4 n multiply-adds a sample, matrix form, twice)
 // and the MC taps (64 a luma sample) against a few MB of planes:
@@ -45,12 +56,13 @@ struct TuScratch {
   int flag;
 };
 
-template <bool kL1>
+template <bool kL1, bool kWP>
 __global__ void mc_kernel(const uint8_t* ry, const uint8_t* rcb,
                           const uint8_t* rcr, const int* slot0,
                           const int* mv0, const int* slot1, const int* mv1,
-                          uint8_t* py, uint8_t* pcb, uint8_t* pcr, int w8,
-                          int H, int W, int pic_w, int pic_h) {
+                          uint8_t* py, uint8_t* pcb, uint8_t* pcr,
+                          const int* wp, int R, int w8, int H, int W,
+                          int pic_w, int pic_h) {
   const int cell = blockIdx.x;
   const int r = cell / w8, c = cell % w8;
   const int s0 = slot0[cell], mx0 = mv0[2 * cell], my0 = mv0[2 * cell + 1];
@@ -59,15 +71,25 @@ __global__ void mc_kernel(const uint8_t* ry, const uint8_t* rcb,
   const int t = threadIdx.x;
   if (t < 64) {
     const int y = t / 8, x = t % 8;
-    py[(size_t)(r * 8 + y) * W + c * 8 + x] = (uint8_t)ks_mc_pred<kL1>(
-        ry, (size_t)H * W, W, pic_w, pic_h, r * 8, c * 8, s0, mx0, my0, s1,
-        mx1, my1, true, y, x);
+    const size_t pl = (size_t)H * W;
+    py[(size_t)(r * 8 + y) * W + c * 8 + x] = (uint8_t)(
+        kWP ? ks_mc_pred_wp<kL1>(ry, pl, W, pic_w, pic_h, r * 8, c * 8, s0,
+                                 mx0, my0, s1, mx1, my1, true, 0, wp, R, y,
+                                 x)
+            : ks_mc_pred<kL1>(ry, pl, W, pic_w, pic_h, r * 8, c * 8, s0, mx0,
+                              my0, s1, mx1, my1, true, y, x));
   } else if (t < 96) {
     const int k = t - 64, pl = k / 16, y = (k % 16) / 4, x = k % 4;
     uint8_t* out = pl ? pcr : pcb;
-    out[(size_t)(r * 4 + y) * (W / 2) + c * 4 + x] = (uint8_t)ks_mc_pred<kL1>(
-        pl ? rcr : rcb, (size_t)(H / 2) * (W / 2), W / 2, pic_w / 2,
-        pic_h / 2, r * 4, c * 4, s0, mx0, my0, s1, mx1, my1, false, y, x);
+    const uint8_t* ref = pl ? rcr : rcb;
+    const size_t plane = (size_t)(H / 2) * (W / 2);
+    out[(size_t)(r * 4 + y) * (W / 2) + c * 4 + x] = (uint8_t)(
+        kWP ? ks_mc_pred_wp<kL1>(ref, plane, W / 2, pic_w / 2, pic_h / 2,
+                                 r * 4, c * 4, s0, mx0, my0, s1, mx1, my1,
+                                 false, 1 + pl, wp, R, y, x)
+            : ks_mc_pred<kL1>(ref, plane, W / 2, pic_w / 2, pic_h / 2,
+                              r * 4, c * 4, s0, mx0, my0, s1, mx1, my1,
+                              false, y, x));
   }
 }
 
@@ -202,22 +224,125 @@ __global__ void bs_kernel(const uint8_t* cbf4, const uint8_t* e2v,
   bs_h[i] = (uint8_t)(deblock ? h : 0);
 }
 
+// One block per CTB (c4 x c4 threads): zfirst, any coded cell, the planned
+// QP of the last in-picture cell in z order.
+__global__ void eff_qp_ctb_kernel(const int* qp4, const int16_t* cy,
+                                  const int16_t* ccb, const int16_t* ccr,
+                                  const int* zin4, const int* zcu4,
+                                  int* ctb, int h4, int w4, int c4,
+                                  int pic_w4, int pic_h4) {
+  __shared__ int zfirst, zlast, plast;
+  const int nc = w4 / c4, nctb = (h4 / c4) * nc;
+  const int b = blockIdx.x, ry = b / nc, rx = b % nc;
+  const int t = threadIdx.x;
+  if (t == 0) {
+    zfirst = 1 << 30;
+    zlast = -1;
+  }
+  __syncthreads();
+  const int y4 = ry * c4 + t / c4, x4 = rx * c4 + t % c4;
+  const int o = y4 * w4 + x4;
+  const bool valid = x4 < pic_w4 && y4 < pic_h4;
+  bool nz = false;
+  const int W = w4 * 4, Wc = w4 * 2;
+  for (int i = 0; i < 16; i++)
+    nz |= cy[(size_t)(4 * y4 + i / 4) * W + 4 * x4 + i % 4] != 0;
+  for (int i = 0; i < 4; i++) {
+    const size_t co = (size_t)(2 * y4 + i / 2) * Wc + 2 * x4 + i % 2;
+    nz |= ccb[co] != 0 || ccr[co] != 0;
+  }
+  if (valid && nz) atomicMin(&zfirst, zcu4[o]);
+  if (valid) atomicMax(&zlast, zin4[o]);
+  __syncthreads();
+  if (valid && zin4[o] == zlast) plast = qp4[o];
+  __syncthreads();
+  if (t == 0) {
+    ctb[b] = zfirst;
+    ctb[nctb + b] = zfirst < (1 << 30);
+    ctb[2 * nctb + b] = plast;
+  }
+}
+
+// One warp per chain: qPY_PREV of every CTB, the planned last QP of the
+// nearest earlier CTB of its chain with coefficients, else the slice QP.
+__global__ void eff_qp_scan_kernel(int* ctb, int nctb, int nc, int wpp,
+                                   int slice_qp) {
+  const int chain = blockIdx.x, lane = threadIdx.x;
+  const int len = wpp ? nc : nctb, base = wpp ? chain * nc : 0;
+  int carry = -1;
+  for (int k0 = 0; k0 < len; k0 += 32) {
+    const int k = k0 + lane;
+    int v = k < len && ctb[nctb + base + k] ? base + k : -1;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v = max(v, u);
+    }
+    int excl = __shfl_up_sync(0xffffffffu, v, 1);
+    if (lane == 0) excl = -1;
+    excl = max(excl, carry);
+    if (k < len)
+      ctb[3 * nctb + base + k] = excl >= 0 ? ctb[2 * nctb + excl] : slice_qp;
+    carry = max(carry, __shfl_sync(0xffffffffu, v, 31));
+  }
+}
+
+__global__ void eff_qp_apply_kernel(const int* qp4, const int* zin4,
+                                    const int* ctb, uint8_t* out, int h4,
+                                    int w4, int c4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= h4 * w4) return;
+  const int nc = w4 / c4, nctb = (h4 / c4) * nc;
+  const int b = (i / w4 / c4) * nc + (i % w4) / c4;
+  out[i] = (uint8_t)(zin4[i] < ctb[b] ? ctb[3 * nctb + b] : qp4[i]);
+}
+
 }  // namespace
 
-// slot1 / mv1 are read only with has_l1 (a B picture); the uni-predicted
-// instantiation carries no list-1 code.
+// ctb: (4, nctb) int32 scratch (zfirst, any coded, planned last, qprev).
+extern "C" int ks_inter_eff_qp(const void* qp4, const void* cy,
+                               const void* ccb, const void* ccr,
+                               const void* zin4, const void* zcu4,
+                               void* ctb, void* out, int h4, int w4, int c4,
+                               int pic_w, int pic_h, int slice_qp, int wpp,
+                               void* stream) {
+  const int nr = h4 / c4, nc = w4 / c4;
+  if (nr <= 0 || nc <= 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  eff_qp_ctb_kernel<<<nr * nc, c4 * c4, 0, st>>>(
+      (const int*)qp4, (const int16_t*)cy, (const int16_t*)ccb,
+      (const int16_t*)ccr, (const int*)zin4, (const int*)zcu4, (int*)ctb, h4,
+      w4, c4, pic_w >> 2, pic_h >> 2);
+  int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  eff_qp_scan_kernel<<<wpp ? nr : 1, 32, 0, st>>>((int*)ctb, nr * nc, nc, wpp,
+                                                 slice_qp);
+  rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  eff_qp_apply_kernel<<<(h4 * w4 + 255) / 256, 256, 0, st>>>(
+      (const int*)qp4, (const int*)zin4, (const int*)ctb, (uint8_t*)out, h4,
+      w4, c4);
+  return (int)cudaGetLastError();
+}
+
+// slot1 / mv1 are read only with has_l1 (a B picture) and the weight table
+// wp (ops/mc.py::wp_table, R slots) only with weighted; the unweighted
+// uni-predicted instantiation carries neither list-1 nor weight code.
 extern "C" int ks_inter_mc(const void* ry, const void* rcb, const void* rcr,
                            const void* slot0, const void* mv0,
                            const void* slot1, const void* mv1, void* py,
-                           void* pcb, void* pcr, int h8, int w8, int H,
-                           int W, int pic_w, int pic_h, int has_l1,
-                           void* stream) {
+                           void* pcb, void* pcr, const void* wp, int h8,
+                           int w8, int H, int W, int pic_w, int pic_h,
+                           int has_l1, int weighted, int R, void* stream) {
   if (h8 <= 0 || w8 <= 0) return 0;
-  auto kernel = has_l1 ? mc_kernel<true> : mc_kernel<false>;
+  auto kernel = has_l1 ? (weighted ? mc_kernel<true, true>
+                                   : mc_kernel<true, false>)
+                       : (weighted ? mc_kernel<false, true>
+                                   : mc_kernel<false, false>);
   kernel<<<h8 * w8, 96, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)ry, (const uint8_t*)rcb, (const uint8_t*)rcr,
       (const int*)slot0, (const int*)mv0, (const int*)slot1, (const int*)mv1,
-      (uint8_t*)py, (uint8_t*)pcb, (uint8_t*)pcr, w8, H, W, pic_w, pic_h);
+      (uint8_t*)py, (uint8_t*)pcb, (uint8_t*)pcr, (const int*)wp, R, w8, H,
+      W, pic_w, pic_h);
   return (int)cudaGetLastError();
 }
 

@@ -13,10 +13,18 @@
 // reference's argmin. One warp scores the four intra modes. All sums are
 // exact int32; the host casts the per-frame sums to float32 at the end.
 //
+// ks_la_var: one thread per 8x8 block of a half plane, the variance of
+// `_block_stats` for adaptive quantisation: the integer sum gives the
+// exact mean, then one float32 lane per row takes that row's squared
+// deviations left to right as fused multiply-adds (`__fmaf_rn`) from 0,
+// and the 8 lanes are summed by halving and scaled by 1/64 — the order
+// the reference backend's vectorised loop takes (ops/lookahead.py).
+//
 // Bound: 289 offsets x 64 samples of |a - b| per block, about 4.2 M
 // operations per 640x360 half frame against ~0.5 MB of traffic, so the
-// kernel is operations-bound; shared memory keeps every window read on
-// chip.
+// features kernel is operations-bound; shared memory keeps every window
+// read on chip. The variance reads each sample once (230 KB a 720p half
+// frame) for about 3 operations a sample: bytes bound it.
 #include "common.cuh"
 
 namespace {
@@ -100,6 +108,32 @@ __global__ void la_features_kernel(const uint8_t* curs, const uint8_t* prevs,
   }
 }
 
+__global__ void la_var_kernel(const uint8_t* curs, float* out, int F, int h,
+                              int w) {
+  const int nbx = w / kBs, nby = h / kBs, nb = nbx * nby;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= F * nb) return;
+  const int f = i / nb, b = i % nb, by = b / nbx, bx = b % nbx;
+  const uint8_t* p = curs + (size_t)f * h * w + (size_t)(by * kBs) * w +
+                     bx * kBs;
+  int s = 0;
+  for (int r = 0; r < kBs; r++)
+    for (int q = 0; q < kBs; q++) s += p[(size_t)r * w + q];
+  const float mean = (float)s * 0.015625f;
+  float lane[kBs];
+  for (int r = 0; r < kBs; r++) {
+    float acc = 0.f;
+    for (int q = 0; q < kBs; q++) {
+      const float d = (float)p[(size_t)r * w + q] - mean;
+      acc = __fmaf_rn(d, d, acc);
+    }
+    lane[r] = acc;
+  }
+  for (int hh = kBs / 2; hh >= 1; hh >>= 1)
+    for (int k = 0; k < hh; k++) lane[k] = lane[k] + lane[k + hh];
+  out[i] = lane[0] * 0.015625f;
+}
+
 }  // namespace
 
 extern "C" int ks_la_downsample(const void* y, void* out, int F, int H,
@@ -119,5 +153,15 @@ extern "C" int ks_la_features(const void* curs, const void* prevs, void* maps,
   la_features_kernel<<<dim3(w / kBs, h / kBs, F), 352, 0,
                        (cudaStream_t)stream>>>(
       (const uint8_t*)curs, (const uint8_t*)prevs, (int*)maps, F, h, w);
+  return (int)cudaGetLastError();
+}
+
+// out: (F, h/8, w/8) float32.
+extern "C" int ks_la_var(const void* curs, void* out, int F, int h, int w,
+                         void* stream) {
+  const int n = F * (h / kBs) * (w / kBs);
+  if (n <= 0) return 0;
+  la_var_kernel<<<(n + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)curs, (float*)out, F, h, w);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,10 @@
 // The default combine of spec 8.5.4.2.5.2 (`_combine` without weights)
 // takes (p + 32) >> 6 of one list or (p0 + p1 + 64) >> 7 of both. Used by
 // K13 (csrc/me.cu), K15 (csrc/inter_decide.cu), K17 (csrc/inter_code.cu)
-// and, through `ks_inter_mc`, K18.
+// and, through `ks_inter_mc`, K18. Explicit weighted prediction (spec
+// 8.5.3.3.4.3, `_combine` with weights and `_cell_w`) is `ks_mc_pred_wp`,
+// which only `ks_inter_mc`'s weighted instantiation runs: K13 and K15
+// search and decide on the unweighted prediction, as the reference does.
 #pragma once
 
 #include "common.cuh"
@@ -79,4 +82,53 @@ static __device__ __forceinline__ int ks_mc_pred(
                                   x));
   return ks_mc_uni(ks_mc_sample(base + (size_t)max(s1, 0) * plane, stride,
                                 pic_w, pic_h, by, bx, mx1, my1, luma, y, x));
+}
+
+// Explicit weighted prediction of sample (y, x): `wp` is the int32 table
+// of ops/mc.py::wp_table, (2, R, 3, 3) of (flag, weight, offset) per list,
+// slot and component, then log2Wd per component. A list whose slot carries
+// the component's flag takes its weight and offset, otherwise the spec's
+// default 2^(log2Wd - 6) and 0, which reproduce the default combine (the
+// reference's `_cell_w` takes 64, right only at denominator 6). Both lists: (p0 w0 + p1 w1 +
+// ((o0 + o1 + 1) << lwd)) >> (lwd + 1); one: ((p w + 2^(lwd-1)) >> lwd)
+// + o (p w + o at lwd 0); then the clip to 8 bits. The slots pick the
+// lists as `ks_mc_pred` does.
+template <bool kL1>
+static __device__ __forceinline__ int ks_mc_pred_wp(
+    const uint8_t* base, size_t plane, int stride, int pic_w, int pic_h,
+    int by, int bx, int s0, int mx0, int my0, int s1, int mx1, int my1,
+    bool luma, int comp, const int* wp, int R, int y, int x) {
+  const int lwd = wp[2 * R * 9 + comp];
+  auto weight = [&](int list, int s, int* w, int* o) {
+    const int* e = wp + ((list * R + max(s, 0)) * 3 + comp) * 3;
+    const bool f = s >= 0 && e[0] != 0;
+    *w = f ? e[1] : 1 << (lwd - 6);
+    *o = f ? e[2] : 0;
+  };
+  auto uni = [&](int p, int w, int o) {
+    const int v = lwd >= 1 ? ((p * w + (1 << (lwd - 1))) >> lwd) + o
+                           : p * w + o;
+    return ks_clip3(0, 255, v);
+  };
+  int w0, o0;
+  weight(0, s0, &w0, &o0);
+  if (kL1 && s1 >= 0 && s0 >= 0) {
+    int w1, o1;
+    weight(1, s1, &w1, &o1);
+    const int p0 = ks_mc_sample(base + (size_t)s0 * plane, stride, pic_w,
+                                pic_h, by, bx, mx0, my0, luma, y, x);
+    const int p1 = ks_mc_sample(base + (size_t)s1 * plane, stride, pic_w,
+                                pic_h, by, bx, mx1, my1, luma, y, x);
+    return ks_clip3(0, 255,
+                    (p0 * w0 + p1 * w1 + ((o0 + o1 + 1) << lwd)) >> (lwd + 1));
+  }
+  if (!kL1 || s0 >= 0)
+    return uni(ks_mc_sample(base + (size_t)max(s0, 0) * plane, stride, pic_w,
+                            pic_h, by, bx, mx0, my0, luma, y, x),
+               w0, o0);
+  int w1, o1;
+  weight(1, s1, &w1, &o1);
+  return uni(ks_mc_sample(base + (size_t)max(s1, 0) * plane, stride, pic_w,
+                          pic_h, by, bx, mx1, my1, luma, y, x),
+             w1, o1);
 }

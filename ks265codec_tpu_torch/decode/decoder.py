@@ -11,12 +11,13 @@ fills the decision maps and dense level planes, then
 on the decoder's device; the planes stay there until a consumer reads them.
 The inter fast path (`_materialize_fast_inter`) reconstructs a parsed P
 or B picture the same way through K18 (decode/interfast.py,
-ops/wavefront.py::recon_inter_filter: K14 MC from one or both lists, the
-inter TUs' residual, K11 over the intra CUs, K7, K9). Pictures outside
-the fast paths' coverage take the scalar walk and the host filters
-(decode/filters.py), except P and B pictures on the card, which raise
-NotImplementedError, as slices with explicit weighted prediction do on
-every device.
+ops/wavefront.py::recon_inter_filter: K14 MC from one or both lists,
+with the slice's explicit weights, the inter TUs' residual, K11 over the
+intra CUs, K7, K9; under cu_qp_delta the parse's effective QPs). Pictures
+outside the fast paths' coverage take the scalar walk and the host
+filters (decode/filters.py), except P and B pictures on the card, which
+raise NotImplementedError. Unlike the reference, each CRA's RASL pictures
+follow its own NoRaslOutputFlag (`_compute_poc`).
 """
 
 from __future__ import annotations
@@ -214,7 +215,8 @@ class HevcDecoder:
             # RASL pictures associated with a CRA that OPENED the stream
             # (NoRaslOutputFlag = 1) reference pictures from before the
             # access point and must be discarded (spec 8.1); the flag
-            # clears at the first non-RASL picture after that CRA
+            # clears at the first non-RASL picture after that CRA, and
+            # each later CRA clears it (`_compute_poc`)
             if is_rasl(t):
                 if getattr(self, "_discard_rasl", False):
                     return
@@ -379,8 +381,11 @@ class HevcDecoder:
             prev_msb = prev - prev_lsb
             lsb = hdr.pic_order_cnt_lsb
             no_rasl_out = is_irap(hdr.nal_type) and self.first_pic
-            if no_rasl_out and hdr.nal_type == NalType.CRA_NUT:
-                self._discard_rasl = True   # stream opens at this CRA
+            if hdr.nal_type == NalType.CRA_NUT and hdr.first_slice_in_pic:
+                # each CRA's NoRaslOutputFlag decides its own RASL
+                # pictures (spec 8.1): discarded after the CRA that opens
+                # the stream, decoded and output after any later CRA
+                self._discard_rasl = no_rasl_out
             if no_rasl_out:
                 msb = 0
                 poc = lsb
@@ -500,8 +505,6 @@ class HevcDecoder:
               and not pps.scaling_list_data_present)
         if hdr.slice_type == I_SLICE:
             return ok
-        from .interfast import _wp_tables
-        _wp_tables(hdr)
         # P/B coverage (the reference's gates): single-tile pictures; the
         # chroma residual reads one QP per 4x4 chroma tile, so
         # quantization groups must be >= 16 luma samples. PU/TU shapes
@@ -516,7 +519,7 @@ class HevcDecoder:
              "transform skip, bypass or constrained intra)")) if bad]
         if gaps and self.device.type != "cpu":
             raise NotImplementedError(
-                "; ".join(gaps) + " on the card (slice 7); "
+                "; ".join(gaps) + " on the card (slices 7b, 8); "
                 "HevcDecoder(device='cpu') decodes them with the scalar walk")
         return not gaps
 

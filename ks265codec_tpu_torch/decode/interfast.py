@@ -6,8 +6,10 @@ inside the fast path's coverage (TU == CU, PUs of at least 8x8 per
 dimension, checked by slice_dec's FastPathAbort gates; everything the
 encoder writes) the whole picture reconstructs on the decoder's device
 from the parsed fields: K14 MC from the per-8x8-cell motion of one or
-both lists, the inter TUs' residual, the intra CUs over it (K11), K7 and
-K9. Explicit weighted prediction is not ported and raises.
+both lists (with the slice's explicit weighted-prediction tables where it
+carries them), the inter TUs' residual, the intra CUs over it (K11), K7
+and K9, with the parse's QPs, which under cu_qp_delta are the effective
+ones.
 """
 
 from __future__ import annotations
@@ -50,14 +52,6 @@ def _ref_stacks(uniq, dev):
     return tuple(torch.stack(s).contiguous() for s in stacks)
 
 
-def _wp_tables(hdr):
-    """Explicit weighted prediction is not ported: a slice that carries
-    weights raises (the decoder's `_fast_eligible` asks)."""
-    if hdr.weights is not None:
-        raise NotImplementedError("explicit weighted prediction in the "
-                                  "decoder (slice 7)")
-
-
 def _intra_sched(coder, fs, sps, pps, hdr, log2m8, intra8):
     """The level schedule of the picture's intra CUs (or None)."""
     from ..encode.merge_vec import zscan_vals
@@ -81,6 +75,7 @@ def recon_inter_picture(wf_coder, fs, sps, pps, hdr, ref_lists, sao_params,
     """Reconstruction of a parse-only P or B picture on dev (K18). sao_params:
     (type, offs, bpos, eocl) int8 numpy arrays, or None for no SAO.
     Returns the (y, cb, cr) uint8 planes on dev."""
+    from ..ops.mc import wp_tables
     from ..ops.wavefront import recon_inter_filter
     from ..utils.trace import stage
     from .filters import compute_bs
@@ -91,6 +86,7 @@ def recon_inter_picture(wf_coder, fs, sps, pps, hdr, ref_lists, sao_params,
     intra8 = parsed8 & (fs.pred_mode[::2, ::2] == 1)
     inter8 = parsed8 & (fs.pred_mode[::2, ::2] == 0)
     uniq, slot_of = _slot_tables(ref_lists)
+    wts0, wts1 = wp_tables(hdr, ref_lists, slot_of, len(uniq))
     # per-8x8-cell motion (uniform per cell by the sub-8-PU parse gate):
     # slot -1 where a list is unused; intra and unparsed cells (neither
     # list) predict throwaway samples from slot 0 of list 0
@@ -133,4 +129,5 @@ def recon_inter_picture(wf_coder, fs, sps, pps, hdr, ref_lists, sao_params,
         not bool(hdr.deblocking_filter_disabled), bool(hdr.sao_chroma),
         hdr.beta_offset_div2, hdr.tc_offset_div2, pps.cb_qp_offset,
         pps.cr_qp_offset, sps.width, sps.height, sps.ctb_size,
-        reference=reference, slot1=T(slot1), mv1=T(mv1), has_l1=has_l1)
+        reference=reference, slot1=T(slot1), mv1=T(mv1), has_l1=has_l1,
+        wts0=wts0, wts1=wts1)

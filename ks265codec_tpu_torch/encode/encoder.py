@@ -12,6 +12,16 @@ ultrafast to fast): low-delay P (zerolatency or `bframes == 0`) or the
 hierarchical B GOPs (GOP-8 at `bframes=7`, offline; GOP-4 at
 `livestreaming`/`netvideo`, whose bframes is 3).
 
+With `aq_mode` or `cutree` the PPS enables cu_qp_delta (quantization
+group = CTB): the lookahead's per-CTB offsets (K12 with the 8x8
+variance; CU-tree propagation) set the QP of every CU of every picture,
+the deblocking filter reads the decoder's effective QPs (K17's chain in
+P and B pictures, the host walk `map_writer.apply_effective_qp` in intra
+ones), and the slice writer gets them from that host walk; with CU-tree
+an inter stream's drain waits for the lookahead window. With `weightp`
+each P slice fits explicit weights on the host (`decide_weightp`, its
+reference's luma fetched from the device) and K17's MC applies them.
+
 Inter streams follow the reference's `_drain` inter branches and the
 inter branch of `_encode_picture`: every frame is pushed to the lookahead
 (K12, ops/lookahead.py), whose scene cuts turn a picture into an IDR; an
@@ -76,7 +86,7 @@ from ..utils.trace import stage
 from ..utils.yuv import LazyYUV, YUVFrame
 from .config import RC_FIXQP, EncoderConfig, resolve_preset, tile_dims
 from .intra_frame import IntraFrameEncoder, decision_maps8, pad_plane, \
-    tile_region_maps
+    qp_map8, tile_region_maps
 from .map_writer import write_slice_data
 from .sao import decide_from_stats_arrays, params_from_arrays
 
@@ -98,14 +108,55 @@ class EncodedFrame:
     temporal_id: int = 0
 
 
+def decide_weightp(src_y, ref_lumas):
+    """Explicit weighted prediction of a P slice, the reference's
+    `decide_weightp`: per L0 reference a least-squares (gain, offset) fit
+    of the source luma against the reference's on 4x-subsampled planes,
+    kept only when it is clearly non-identity and lowers the plain SAD by
+    more than 3%. ref_lumas: each L0 reference's luma plane on the host
+    (the port keeps reconstructions on the device, so the caller fetches
+    them). Returns per reference [luma, cb, cr] PredWeight triples (chroma
+    identity), or None when every reference is identity."""
+    from ..hevc.slicehdr import PredWeight
+    s = np.asarray(src_y, np.float64)[::4, ::4]
+    sh = s.shape
+    out = []
+    any_flag = False
+    for ry in ref_lumas:
+        r = np.asarray(ry, np.float64)[:src_y.shape[0],
+                                       :src_y.shape[1]][::4, ::4]
+        r = r[:sh[0], :sh[1]]
+        use, wq, oq = False, 64, 0
+        vr = float(r.var())
+        if vr > 1e-3:
+            cov = float(((s - s.mean()) * (r - r.mean())).mean())
+            wr = min(max(cov / vr, 0.25), 2.0)     # |delta_w| <= 127
+            wq = int(np.clip(round(wr * 64), 1, 191))
+            oq = int(np.clip(round(s.mean() - wq / 64.0 * r.mean()),
+                             -128, 127))
+            if abs(wq - 64) > 2 or abs(oq) > 3:
+                pred = np.clip(r * (wq / 64.0) + oq, 0, 255)
+                # a clear win only: motion search runs on the unweighted
+                # reference
+                if (np.abs(s - pred).sum()
+                        < 0.97 * np.abs(s - r).sum()):
+                    use = True
+        if not use:
+            wq, oq = 64, 0
+        out.append([PredWeight(1 if use else 0, wq, oq),
+                    PredWeight(0, 64, 0), PredWeight(0, 64, 0)])
+        any_flag = any_flag or use
+    return out if any_flag else None
+
+
 def unsupported(cfg: EncoderConfig) -> list[str]:
     """The parts of a resolved configuration this port does not cover yet
     (empty when it covers all of them)."""
     out = []
     inter = cfg.intra_period != 1
+    host_only = inter or bool(cfg.aq_mode) or bool(cfg.cutree)
     checks = [
         (inter and cfg.refs > 1, "multiple reference pictures (refs > 1)"),
-        (inter and bool(cfg.weightp), "weighted prediction (weightp)"),
         (inter and tile_dims(cfg) != (1, 1), "tiles with inter coding"),
         (inter and cfg.partitions != 0, "inter partitions"),
         (inter and cfg.inter_tu_depth != 0, "the inter TU split"),
@@ -114,14 +165,14 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
         (inter and bool(cfg.open_gop), "open GOP (CRA pictures)"),
         (cfg.rc != RC_FIXQP, "rate control other than fixed QP"),
         (cfg.pass_num != 0, "two-pass rate control"),
-        (bool(cfg.aq_mode), "adaptive quantisation (aq_mode)"),
-        (bool(cfg.cutree), "CU-tree"),
         (bool(cfg.pcm), "PCM"),
-        # an inter stream's IDR takes the reference's host path for these
-        (inter and bool(cfg.intra_nxn), "NxN intra partitions in inter "
-         "streams"),
-        (inter and cfg.intra_tu_depth > 0, "the intra TU split in inter "
-         "streams"),
+        # the reference turns these on wherever its host walk would be the
+        # only path: inter streams, AQ and CU-tree (resolve_preset drops
+        # CU-tree in all-intra)
+        (host_only and bool(cfg.intra_nxn), "NxN intra partitions in "
+         "inter or AQ streams"),
+        (host_only and cfg.intra_tu_depth > 0, "the intra TU split in "
+         "inter or AQ streams"),
         (cfg.slices > 1, "multiple slices"),
         (not cfg.fpp, "the per-frame path (fpp=False)"),
         (bool(cfg.ssim), "SSIM reporting"),
@@ -262,7 +313,7 @@ class HevcEncoder:
         p.init_qp = 26
         p.constrained_intra_pred = 0
         p.transform_skip_enabled = 1 if cfg.transform_skip else 0
-        p.cu_qp_delta_enabled = 0
+        p.cu_qp_delta_enabled = 1 if (cfg.aq_mode or cfg.cutree) else 0
         p.diff_cu_qp_delta_depth = 0
         p.cb_qp_offset = int(np.clip(cfg.chroma_qp_offset, -12, 12))
         p.cr_qp_offset = int(np.clip(cfg.chroma_qp_offset, -12, 12))
@@ -314,7 +365,7 @@ class HevcEncoder:
         """Push one input frame; returns 0+ coded pictures in coding order
         (frames wait until a batch is full)."""
         self.queue.append((self.frame_idx, frame))
-        if self._inter:
+        if self._inter or self.cfg.aq_mode:
             with stage("la.push"):
                 self.la.push(self.frame_idx, np.asarray(frame.y, np.uint8))
         self.frame_idx += 1
@@ -401,6 +452,12 @@ class HevcEncoder:
                 self.gop_base += 1
                 continue
             if till_idr >= gop_n and len(self.queue) >= gop_n:
+                # with CU-tree, coding waits for a full lookahead window,
+                # so propagation depth follows -lookahead
+                la_depth = min(int(cfg.lookahead or 0), 64)
+                if (not flushing and cfg.cutree and la_depth > gop_n
+                        and len(self.queue) < la_depth):
+                    break
                 use_n = self._b_adapt(idx0, gop_n)
                 if use_n == 1:
                     di, f = self.queue.pop(0)
@@ -528,6 +585,19 @@ class HevcEncoder:
             hdr.temporal_mvp_enabled = 1
             hdr.collocated_from_l0 = 1
             hdr.collocated_ref_idx = 0
+        if cfg.weightp and slice_type == P_SLICE and l0:
+            # explicit weighted prediction (fades): the fit reads each L0
+            # reference's luma, fetched from the device
+            with stage("enc.weightp"):
+                wt = decide_weightp(frame.y, [
+                    self.dev_dpb.get_or_upload(rp.fs)[0].cpu().numpy()
+                    for rp in l0])
+            if wt is not None:
+                log(0, "weightp engaged poc %d: %s" % (
+                    poc, [(c[0].weight, c[0].offset) for c in wt]))
+                hdr.luma_log2_weight_denom = 6
+                hdr.chroma_log2_weight_denom = 6
+                hdr.weights = [wt, []]
         fs = self.frame_pool.acquire(sps)
         fs.poc = poc
         cls = BFrameEncoder if slice_type == B_SLICE else PFrameEncoder
@@ -544,7 +614,15 @@ class HevcEncoder:
         enc.inter_tu_depth = int(cfg.inter_tu_depth)
         enc.dev_dpb = self.dev_dpb
         enc.sao_tier = max(int(cfg.sao), 1)
+        dqp = self._dqp_ctu(display_idx)
+        if dqp is not None:
+            enc.dqp_ctu = dqp
         enc.compute()
+        if pps.cu_qp_delta_enabled:
+            # the slice writer predicts each CU's QP as the decoder does
+            from .map_writer import apply_effective_qp
+            with stage("enc.effective_qp"):
+                apply_effective_qp(fs, enc.syn, sps, pps, hdr)
         recon_dev = enc.device_post["recon_dev"]
         # SAO was decided and applied on the device inside the coding
         # pass; its parameters come back for the slice's sao() syntax
@@ -608,9 +686,21 @@ class HevcEncoder:
             fs.cr[y0 // 2:y1 // 2, x0 // 2:x1 // 2].astype(np.uint8),
             poc=fs.poc)
 
+    def _dqp_ctu(self, display_idx: int):
+        """The lookahead's per-CTB AQ / CU-tree QP offsets of a picture, or
+        None without cu_qp_delta."""
+        if not self.pps.cu_qp_delta_enabled:
+            return None
+        with stage("la.features"):
+            fa = self.la.get(display_idx)
+        return None if fa is None else fa.dqp_ctu
+
     def _dispatch(self, items):
         """Decide, code and deblock a batch on the device and take its SAO
-        statistics; the levels and statistics are fetched in `_collect`."""
+        statistics; the levels and statistics are fetched in `_collect`.
+        Under cu_qp_delta (AQ) each picture's CTBs take the lookahead's QP
+        offsets, and the deblocking filter reads the decoder's effective
+        QPs, which need the levels on the host first."""
         sps, pps, cfg = self.sps, self.pps, self.cfg
         dev = self.device
         ph = sps.pic_height_in_ctbs * sps.ctb_size
@@ -632,13 +722,14 @@ class HevcEncoder:
                      "cm8", "cm16", "cm32")}
         _, tile8, _ = tile_region_maps(pps, sps)
         batch = []
-        for f in range(len(items)):
+        for f, (di, _) in enumerate(items):
             log2m, modes8, cmodes8 = decision_maps8(
                 maps["split32"][f], maps["split16"][f], maps["mode8"][f],
                 maps["mode16"][f], maps["mode32"][f], sps, ph >> 3,
                 pw >> 3, maps["cm8"][f], maps["cm16"][f], maps["cm32"][f])
             batch.append(dict(log2m=log2m, modes8=modes8, cmodes8=cmodes8,
-                              qp_map8=np.full(log2m.shape, qp, np.uint8),
+                              qp_map8=qp_map8(log2m.shape, qp,
+                                              self._dqp_ctu(di)),
                               tile8=tile8))
         with stage("ai.code"):
             sched = self._coder.pack(batch, pps.cb_qp_offset,
@@ -647,6 +738,13 @@ class HevcEncoder:
                 *src, sched, bool(sps.strong_intra_smoothing),
                 sbh=bool(pps.sign_data_hiding_enabled), rdoq=bool(cfg.rdoq),
                 reference=self.reference)
+        if pps.cu_qp_delta_enabled:
+            with stage("ai.fetch_levels"):
+                levels = tuple(lv.cpu().numpy() for lv in levels)
+            with stage("ai.effective_qp"):
+                for f, it in enumerate(batch):
+                    it["qp4"] = self._intra_effective_qp4(
+                        it, *(lv[f] for lv in levels), qp)
         with stage("ai.deblock"):
             bs = [intra_bs_maps(it["log2m"]) for it in batch]
             bs_v = np.stack([b[0] for b in bs]).astype(np.uint8)
@@ -654,7 +752,8 @@ class HevcEncoder:
             if pps.deblocking_filter_disabled:
                 bs_v[:] = 0
                 bs_h[:] = 0
-            qp4 = np.stack([np.repeat(np.repeat(it["qp_map8"], 2, 0), 2, 1)
+            qp4 = np.stack([it["qp4"] if "qp4" in it else
+                            np.repeat(np.repeat(it["qp_map8"], 2, 0), 2, 1)
                             for it in batch])
             recon = deblock_frames(
                 *recon, *(torch.from_numpy(a).to(dev)
@@ -678,11 +777,31 @@ class HevcEncoder:
                     reference=self.reference) for rec, s, sh in planes]
         return items, qp, batch, levels, recon, stats
 
+    def _intra_effective_qp4(self, maps, cy, ccb, ccr, qp: int):
+        """The decoder's QP per 4x4 cell of an intra picture coded under
+        cu_qp_delta (`map_writer.apply_effective_qp`, tiles and WPP rows
+        included) on the CTB grid, for the deblocking filter."""
+        from .map_writer import apply_effective_qp
+        sps = self.sps
+        fs = self._fs
+        fs.reset(sps)
+        hdr = SliceHeader(slice_type=I_SLICE, slice_qp=qp)
+        enc = IntraFrameEncoder(fs, sps, self.pps, hdr)
+        enc.apply_coded_planes(maps["log2m"], maps["modes8"],
+                               maps["cmodes8"], maps["qp_map8"], cy, ccb,
+                               ccr)
+        apply_effective_qp(fs, enc.syn, sps, self.pps, hdr)
+        qp4 = np.repeat(np.repeat(maps["qp_map8"], 2, 0), 2, 1)
+        h4, w4 = sps.height >> 2, sps.width >> 2
+        qp4[:h4, :w4] = fs.qp[:h4, :w4]
+        return qp4
+
     def _collect(self, ctx, fs=None) -> list[EncodedFrame]:
         items, qp, batch, levels, recon, stats = ctx
         sps = self.sps
         with stage("ai.fetch_levels"):
-            cy, ccb, ccr = (lv.cpu().numpy() for lv in levels)
+            cy, ccb, ccr = (lv if isinstance(lv, np.ndarray)
+                            else lv.cpu().numpy() for lv in levels)
         sao_arr = [None] * len(items)
         if stats is not None:
             with stage("ai.sao_decide_host"):
@@ -722,6 +841,10 @@ class HevcEncoder:
         enc.apply_coded_planes(maps["log2m"], maps["modes8"],
                                maps["cmodes8"], maps["qp_map8"], cy, ccb,
                                ccr)
+        if "qp4" in maps:
+            # the decoder's QPs (`_intra_effective_qp4`), for the writer
+            h4, w4 = sps.height >> 2, sps.width >> 2
+            fs.qp[:h4, :w4] = maps["qp4"][:h4, :w4]
         # the decision arrays were applied on the device in _collect; the
         # slice writer codes them as each CTB's sao() syntax
         sao_params = (None if sao_arrays is None

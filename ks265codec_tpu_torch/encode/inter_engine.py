@@ -8,8 +8,12 @@ the port's ops (K5, K13 with its bi cost in B pictures, K15, K17 with
 K14 over both lists, and the seeded K6 scan) on the encoder's device and
 return typed tensors; the host logic is the reference's, its `is_b`
 branches included. The engine reads no environment variable: it takes
-its own default of two decision iterations. Weighted prediction and
-cu_qp_delta inside the engine are not ported and raise.
+its own default of two decision iterations. Explicit weighted prediction
+(P slices with weights) reaches only K17's MC (K14): the motion search
+and the decisions run on the unweighted references, as in the reference.
+Under cu_qp_delta the per-CTB AQ / CU-tree offsets set each CU's QP and
+lambda, and K17 derives the decoder's effective QPs for the deblocking
+filter.
 
 Pipeline per frame (the reference's per-CTU P/B hot loop
 CCtuEnc::processOneCtu, SURVEY.md 3.2, restructured TPU-first):
@@ -25,7 +29,7 @@ CCtuEnc::processOneCtu, SURVEY.md 3.2, restructured TPU-first):
      AMVP (merge_vec) -> merge_idx or mvd syntax, skip conversion.
 The reference's per-CU host walk is not ported, so there is no fallback:
 a configuration the engine does not cover (AMP/partitions, inter TU split,
-AQ/cutree, tiles/slices, PCM, noise reduction) makes
+tiles/slices, PCM, noise reduction) makes
 PFrameEncoder.compute raise NotImplementedError, and a failure inside the
 engine propagates.
 """
@@ -211,11 +215,6 @@ def run_engine(enc) -> None:
     from ..ops.interdecide import TIER_FIELDS, decide_tiers
 
     fs, sps, pps, hdr = enc.fs, enc.sps, enc.pps, enc.hdr
-    if hdr.weights is not None:
-        raise NotImplementedError("weighted prediction is not ported")
-    if pps.cu_qp_delta_enabled:
-        raise NotImplementedError("cu_qp_delta in inter pictures is not "
-                                  "ported")
     cfg_w, cfg_h = sps.width, sps.height
     ph, pw = fs.ph, fs.pw
     h8, w8 = ph >> 3, pw >> 3
@@ -790,6 +789,10 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
     orphan = (slot0 < 0) & (slot1 < 0)
     slot0 = np.where(orphan, 0, slot0)
 
+    # --------- explicit WP tables (P slices with weightp)
+    from ..ops.mc import wp_tables
+    wts0, wts1 = wp_tables(hdr, enc.ref_lists, slot_of, jr[0].shape[0])
+
     # --------- TU packs (TU == CU; 64 CUs force-dropped carry no TUs)
     tu_packs = {}
     cu_xs, cu_ys, cu_n = [], [], []
@@ -845,6 +848,18 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
     # --------- deblock edge/BS inputs (final maps; cbf joins on device)
     bs_in = tuple(T(a) for a in _bs_inputs(enc, maps))
     qp4 = np.repeat(np.repeat(qp_map8, 2, 0), 2, 1).astype(np.uint8)
+    dqp = None
+    if pps.cu_qp_delta_enabled:
+        # per-cell in-CTB z value + z of the cell's CU origin (the chain)
+        h4, w4 = ph >> 2, pw >> 2
+        zloc = (_zvals(h4, w4, sps.log2_ctb)
+                & ((1 << (2 * (sps.log2_ctb - 2))) - 1)).astype(np.int32)
+        s4 = 1 << (np.repeat(np.repeat(maps.log2m.astype(np.int32), 2, 0),
+                             2, 1) - 2)
+        oy4 = np.arange(h4)[:, None] & ~(s4 - 1)
+        ox4 = np.arange(w4)[None, :] & ~(s4 - 1)
+        dqp = (T(zloc), T(zloc[oy4, ox4]), int(hdr.slice_qp),
+               bool(pps.entropy_coding_sync_enabled), sps.ctb_size)
     from ..utils.trace import stage
     with stage("inter.code_dispatch"):
         rec_dev, coef_dev, sao_dev = code_inter_frame(
@@ -859,7 +874,7 @@ def _dispatch_coding(enc, maps, jr, jsrc, to_slot, slot_of, is_b):
                  if sps.sao_enabled else None),
             sbh=bool(pps.sign_data_hiding_enabled),
             slot1=T(slot1.astype(np.int32)), mv1=T(mv1.astype(np.int32)),
-            has_l1=is_b)
+            has_l1=is_b, wts0=wts0, wts1=wts1, dqp=dqp)
     with stage("inter.code_fetch"):
         coeffs = tuple(c.cpu().numpy() for c in coef_dev)
         sao_arrays = (None if sao_dev is None

@@ -4,7 +4,8 @@ the slice writer reads.
 
 Copies of the numpy code of ks265codec_tpu/encode/intra_frame.py
 (`tile_region_maps`, `_block_any`, `_cbf_cells8`, `decision_maps8`,
-`fill_intra_maps`, `IntraFrameEncoder._pad`, `_qp_map8` and the part of
+`fill_intra_maps`, `IntraFrameEncoder._pad`, `_qp_map8` (as `qp_map8`,
+with the per-CTU AQ / CU-tree offsets) and the part of
 `IntraFrameEncoder` that `apply_coded_planes` and the P-picture encoder
 need), and `decide_frame`, the one-frame call of the port's decision pass
 (K5) that the inter engine reads its intra maps and costs from; that
@@ -122,6 +123,25 @@ def fill_intra_maps(fs, syn, log2m, modes8, cmodes8, qp_map8,
     syn.cbf_cr[v] = rep(_cbf_cells8(ccr, log2m, True)).astype(np.uint8)[v]
 
 
+def qp_map8(shape, qp: int, dq=None) -> np.ndarray:
+    """Per-8-cell QP map (the reference's `IntraFrameEncoder._qp_map8`):
+    the base QP plus the per-CTU AQ / CU-tree offsets dq when given, a
+    short offset map extended by its last row and column, clipped to 0-51."""
+    qp_map = np.full(shape, qp, np.int32)
+    if dq is not None:
+        cty = (shape[0] + 7) // 8
+        ctx = (shape[1] + 7) // 8
+        d = np.zeros((cty, ctx), np.int32)
+        d[:dq.shape[0], :dq.shape[1]] = dq[:cty, :ctx]
+        if dq.shape[0] < cty:
+            d[dq.shape[0]:] = d[dq.shape[0] - 1]
+        if dq.shape[1] < ctx:
+            d[:, dq.shape[1]:] = d[:, dq.shape[1] - 1:dq.shape[1]]
+        qp_map = qp_map + np.repeat(np.repeat(d, 8, 0), 8, 1)[
+            :shape[0], :shape[1]]
+    return np.clip(qp_map, 0, 51).astype(np.uint8)
+
+
 def pad_plane(plane, ph: int, pw: int) -> np.ndarray:
     """Pad a plane to (ph, pw) by edge replication (the CTB grid)."""
     h, w = plane.shape
@@ -178,20 +198,7 @@ class IntraFrameEncoder:
 
     def _qp_map8(self, shape):
         """Per-8-cell QP map: base QP + per-CTU AQ offsets when set."""
-        qp_map8 = np.full(shape, self.qp, np.int32)
-        dq = getattr(self, "dqp_ctu", None)
-        if dq is not None:
-            cty = (shape[0] + 7) // 8
-            ctx = (shape[1] + 7) // 8
-            d = np.zeros((cty, ctx), np.int32)
-            d[:dq.shape[0], :dq.shape[1]] = dq[:cty, :ctx]
-            if dq.shape[0] < cty:
-                d[dq.shape[0]:] = d[dq.shape[0] - 1]
-            if dq.shape[1] < ctx:
-                d[:, dq.shape[1]:] = d[:, dq.shape[1] - 1:dq.shape[1]]
-            qp_map8 = qp_map8 + np.repeat(np.repeat(d, 8, 0), 8, 1)[
-                :shape[0], :shape[1]]
-        return np.clip(qp_map8, 0, 51).astype(np.uint8)
+        return qp_map8(shape, self.qp, getattr(self, "dqp_ctu", None))
 
     def apply_coded_planes(self, log2m, modes8, cmodes8, qp_map8,
                            cy, ccb, ccr) -> None:

@@ -116,8 +116,10 @@ class Lookahead:
         self._pending.clear()
         hh, hw = self.prev_half.shape
         nb = (hh // 8) * (hw // 8)
-        tree_dqps = (self._cutree(packed, want_var, hh // 8, hw // 8)
-                     if want_tree else [None] * len(idxs))
+        from ..utils.trace import stage
+        with stage("la.cutree"):
+            tree_dqps = (self._cutree(packed, want_var, hh // 8, hw // 8)
+                         if want_tree else [None] * len(idxs))
         for k, di in enumerate(idxs):
             first = not self._first_done
             row = packed[k].astype(np.float64)
@@ -145,7 +147,8 @@ class Lookahead:
                     from ..utils.log import log
                     log(0, "scenecut at display %d (pcost %.0f icost %.0f)"
                         % (di, pcost, icost))
-            dqp = self._aq_offsets(var, mean8) if want_var else None
+            with stage("la.aq_offsets"):
+                dqp = self._aq_offsets(var, mean8) if want_var else None
             if tree_dqps[k] is not None:
                 dqp = (tree_dqps[k] if dqp is None
                        else np.clip(dqp.astype(np.int32)

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "ks_sao_apply": [_P] * 6 + [_I] * 7 + [_P],
     "ks_la_downsample": [_P] * 2 + [_I] * 3 + [_P],
     "ks_la_features": [_P] * 3 + [_I] * 3 + [_P],
+    "ks_la_var": [_P] * 2 + [_I] * 3 + [_P],
     "ks_me_down2": [_P] * 2 + [_I] * 3 + [_P],
     "ks_me_dense_l2": [_P] * 4 + [_I] * 4 + [_F, _P],
     "ks_me_refine3": [_P] * 3 + [_I] * 7 + [_P],
@@ -50,11 +51,12 @@ _SIGNATURES = {
     "ks_me_bi_cost8": [_P] * 5 + [_I] * 4 + [_F, _P],
     "ks_inter_decide_tier": [_P] * 29 + [_I] * 9 + [_P],
     "ks_inter_cand_sads": [_P] * 9 + [_I] * 8 + [_P],
-    "ks_inter_mc": [_P] * 10 + [_I] * 7 + [_P],
+    "ks_inter_mc": [_P] * 11 + [_I] * 9 + [_P],
     "ks_inter_tu_class": [_P] * 17 + [_I] * 7 + [_P],
     "ks_inter_gate": [_P] * 4 + [_I] * 2 + [_P],
     "ks_inter_finish": [_P] * 18 + [_I] * 6 + [_P],
     "ks_inter_bs": [_P] * 9 + [_I] * 3 + [_P],
+    "ks_inter_eff_qp": [_P] * 8 + [_I] * 7 + [_P],
     "ks_sao_decide": [_P] * 16 + [_I] * 2 + [_F] * 3 + [_P],
     "ks_inter_recon": [_P] * 11 + [_I] * 3 + [_P],
     "ks_rdoq_sbh": [_P] * 6 + [_I] * 3 + [_P],

@@ -28,10 +28,11 @@ reproduce the reference's float32 sequence on its CPU backend exactly:
   * the rate sum of the final cost is (R + mode_bits) + (1 + hdr) at
     effort 0 (the constant DM bit folded into the header bits) and
     ((R + mode_bits) + chroma_bits) + hdr at effort 1;
-  * the frame total `cplx` follows `_frame_sum`: for maps of at most 32
-    rows and columns of 32-blocks the order the test shapes match, above
-    that the reference backend's tree rewrite (windows of 32, each summed
-    in row-major order);
+  * the frame total `cplx` follows `_frame_sum`: above 32 rows or
+    columns of 32-blocks the reference backend's tree rewrite (windows of
+    32, each summed in row-major order), then the order its vectorised
+    loop takes at the map's shape (read off its optimised code at
+    1280x768, 320x256, 192x320, 128x96 and the tests' maps);
   * `3.1 + 2 * log2(level)` is a table (`bits_table`) built from the
     reference backend's float32 log (`_logtab`) and the same contraction.
 The CUDA kernels (csrc/decide.cu) run the same sequence in one thread per
@@ -156,17 +157,37 @@ def _window_sum(m: torch.Tensor) -> torch.Tensor:
 def _frame_sum(m: torch.Tensor) -> torch.Tensor:
     """(F, h, w) -> (F,): the frame total in the reference backend's order.
     With a dimension above 32, the window sums of `_window_sum` first.
-    Then each row summed sequentially, and the row sums by halving
-    (zero-padded to a power of two): the order of the maps of 4 rows the
-    tests hold against the reference (other shapes up to 32 may differ;
-    the total feeds only rate control)."""
+    Then, as its vectorised loop takes the map: with more than 8 columns a
+    running total enters lane 0 of an 8-lane vector that takes each row's
+    8-column chunks in turn (a short last chunk in the first lanes) and is
+    reduced by halving at the row's end (maps of 8 x 10, 6 x 10, 2 x 12);
+    with at most 8 columns and 4 or 8 rows each row summed in order and
+    the rows by halving (4 x 4, 4 x 6, 8 x 8); otherwise row-major in
+    order (3 x 4, 10 x 6, and the window sums at 1280x768). Other shapes
+    are not held against the reference (the total feeds only rate
+    control)."""
     while max(m.shape[1:]) > 32:
         m = _window_sum(m)
-    acc = m[:, :, 0]
-    for c in range(1, m.shape[2]):
-        acc = acc + m[:, :, c]
-    pad = (1 << (acc.shape[1] - 1).bit_length()) - acc.shape[1]
-    return _tree(torch.nn.functional.pad(acc, (0, pad)))
+    F, h, w = m.shape
+    if w > 8:
+        acc = torch.zeros((F,), dtype=m.dtype, device=m.device)
+        for r in range(h):
+            v = torch.zeros((F, 8), dtype=m.dtype, device=m.device)
+            v[:, 0] = acc
+            for k in range(0, w, 8):
+                ch = m[:, r, k:k + 8]
+                v[:, :ch.shape[1]] = v[:, :ch.shape[1]] + ch
+            acc = _tree(v)
+        return acc
+    if h in (4, 8):
+        acc = m[:, :, 0]
+        for c in range(1, w):
+            acc = acc + m[:, :, c]
+        return _tree(acc)
+    acc = m[:, 0, 0]
+    for i in range(1, h * w):
+        acc = acc + m[:, i // w, i % w]
+    return acc
 
 
 def _source_refs(plane: torch.Tensor, n: int) -> torch.Tensor:

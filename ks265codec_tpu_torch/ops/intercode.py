@@ -5,11 +5,16 @@ picture's intra CUs, the boundary strengths, the deblocking filter and,
 when the sequence has it, SAO (K8 statistics -> K16 decision -> K9).
 
 Counterpart of ks265codec_tpu/ops/intercode.py::_inter_code_core (with
-`_code_tu_class`, the chroma branch, and `code_inter_frame_jit`) without
-weighted prediction and cu_qp_delta (the effective-QP chain
-`_effective_qp4` is then the identity). List 1 (`has_l1`, B pictures)
-reaches only the MC: K14 averages the two lists' predictions where a cell
-uses both, and everything after it reads the prediction planes. Sign
+`_code_tu_class`, the chroma branch, `_effective_qp4` and
+`code_inter_frame_jit`). List 1 (`has_l1`, B pictures) and the explicit
+weighted-prediction tables (`wts0`, `wts1`) reach only the MC: K14
+averages or weights the two lists' predictions, and everything after it
+reads the prediction planes. Under cu_qp_delta (quantization group = CTB)
+the TUs carry their CU's QP (the per-CTB AQ / CU-tree offsets) and the
+deblocking filter reads the decoder's effective QP per 4x4 cell
+(`effective_qp4`): the cells of the CUs before a CTB's first CU with
+coefficients take the predicted QP, the last planned QP of the nearest
+earlier CTB with coefficients (per CTB row with WPP), else the slice QP. Sign
 hiding (K2's encode/sbh.py), where the PPS enables it, runs on every
 inter TU with the diagonal scan, before the TU's sums, and in the seeded
 intra scan; the reference runs no RDOQ in P or B pictures, and neither
@@ -30,7 +35,10 @@ one launch per TU class (one thread block per TU: transform, quantise,
 dequantise, inverse transform, the three sums in one thread), one gate
 launch (one thread per CU), one launch per TU class for the final levels
 and reconstruction; then the intra scan's level launches (csrc/
-intra_scan.cu), one launch for the boundary strengths and the two
+intra_scan.cu), one launch for the boundary strengths, under cu_qp_delta
+the effective-QP chain (`ks_inter_eff_qp`: one thread block per CTB for
+its first coded CU and last planned QP, one warp per chain for the
+prefix scan, one thread per 4x4 cell for the result), and the two
 deblocking launches (csrc/deblock.cu); with SAO, the K8, K16 and K9
 launches (csrc/sao_stats.cu, sao_decide.cu, sao_apply.cu).
 """
@@ -197,14 +205,16 @@ def cu_sums(si, pi, tu_packs: dict, n_cu: int, sbh: bool):
 
 def code_inter_frame_plain(src, refs, slot0, mv0, l1, tu_packs, cu_lam,
                            intra_sched, n_cu: int, h8: int, w8: int,
-                           pic_w: int, pic_h: int, strong: bool, sbh: bool):
+                           pic_w: int, pic_h: int, strong: bool, sbh: bool,
+                           wts=(None, None)):
     """Steps 1-5 on the plain path: returns (pred, rec, coef, cbf4), each
     plane set a (y, cb, cr) tuple; rec is pre-deblocking. l1: list 1's
-    (slot1, mv1), or None."""
+    (slot1, mv1), or None; wts: the two lists' weight tables or Nones."""
     dev = src[0].device
     si = [p.to(torch.int32) for p in src]
     pred = mc_planes(refs, slot0, mv0, *(l1 or no_l1(slot0, mv0)),
-                     l1 is not None, h8, w8, pic_w, pic_h, reference=True)
+                     l1 is not None, h8, w8, pic_w, pic_h, reference=True,
+                     wts0=wts[0], wts1=wts[1])
     pi = [p.to(torch.int32) for p in pred]
     acc, results = cu_sums(si, pi, tu_packs, n_cu, sbh)
     d_skip, d_coded, bits = acc
@@ -245,7 +255,8 @@ def _i32(a, dev):
 
 def code_inter_frame_cuda(src, refs, slot0, mv0, l1, tu_packs, cu_lam,
                           intra_sched, n_cu: int, h8: int, w8: int,
-                          pic_w: int, pic_h: int, strong: bool, sbh: bool):
+                          pic_w: int, pic_h: int, strong: bool, sbh: bool,
+                          wts=(None, None)):
     """Steps 1-5 on the card (see the module note)."""
     for t in tuple(src) + tuple(refs):
         if t.dtype != torch.uint8 or not t.is_cuda or not t.is_contiguous():
@@ -257,7 +268,8 @@ def code_inter_frame_cuda(src, refs, slot0, mv0, l1, tu_packs, cu_lam,
     tab = device_tables(dev)
     R, H, W = refs[0].shape
     pred = mc_planes(refs, slot0, mv0, *(l1 or no_l1(slot0, mv0)),
-                     l1 is not None, h8, w8, pic_w, pic_h)
+                     l1 is not None, h8, w8, pic_w, pic_h, wts0=wts[0],
+                     wts1=wts[1])
     ctab = torch.as_tensor(cu_table(tu_packs, n_cu), device=dev)
     cls = []
     sums = torch.zeros((len(CLASS_ORDER), 3, max(
@@ -329,6 +341,103 @@ def bs_maps_cuda(cbf4, e2_v, e2_h, etb_v, etb_h, emv_v, emv_h,
     return bs_v, bs_h
 
 
+# ------------------------------------------------- the effective-QP chain
+
+def coded4(coef) -> torch.Tensor:
+    """(H/4, W/4) bool: any nonzero level of any plane in each 4x4 luma
+    cell (its 2x2 chroma cells)."""
+    y, cb, cr = coef
+    h4, w4 = y.shape[0] // 4, y.shape[1] // 4
+    nz = lambda c, k: (c.reshape(h4, k, w4, k) != 0).any(3).any(1)
+    return nz(y, 4) | nz(cb, 2) | nz(cr, 2)
+
+
+def effective_qp4_plain(qp4, cbf4, zin4, zcu4, slice_qp: int, wpp: bool,
+                        cs: int, pic_w: int, pic_h: int) -> torch.Tensor:
+    """The reference's `_effective_qp4`: qp4 (H/4, W/4) planned QPs, cbf4
+    per-cell coefficients (`coded4`), zin4 each cell's z value inside its
+    CTB, zcu4 the z value of its CU's origin. Returns the int32 QPs the
+    decoder derives."""
+    dev = qp4.device
+    c4 = cs >> 2
+    h4, w4 = qp4.shape
+    nr, nc = h4 // c4, w4 // c4
+
+    def blk(a):
+        return a.reshape(nr, c4, nc, c4).transpose(1, 2).reshape(nr, nc, -1)
+
+    y4 = torch.arange(h4, device=dev)[:, None]
+    x4 = torch.arange(w4, device=dev)[None, :]
+    valid = (x4 < (pic_w >> 2)) & (y4 < (pic_h >> 2))
+    zin4, zcu4 = (z.to(dev, torch.int64).expand(h4, w4) for z in (zin4, zcu4))
+    cb = blk(cbf4.to(dev).bool() & valid)
+    zfirst = torch.where(cb, blk(zcu4), 1 << 30).min(-1).values
+    anyc = cb.any(-1)
+    zlast = torch.where(blk(valid.expand(h4, w4)), blk(zin4), -1)
+    li = zlast.argmax(-1, keepdim=True)
+    planned_last = blk(qp4.to(dev, torch.int64)).gather(-1, li)[..., 0]
+    if wpp:
+        idx = torch.where(anyc, torch.arange(nc, device=dev)[None, :], -1)
+        excl = torch.cat([torch.full((nr, 1), -1, device=dev), idx[:, :-1]],
+                         1)
+        last = excl.cummax(1).values
+        qprev = torch.where(last >= 0,
+                            planned_last.gather(1, last.clamp(min=0)),
+                            slice_qp)
+    else:
+        idx = torch.where(anyc.reshape(-1),
+                          torch.arange(nr * nc, device=dev), -1)
+        excl = torch.cat([torch.full((1,), -1, device=dev), idx[:-1]])
+        last = excl.cummax(0).values
+        qprev = torch.where(last >= 0,
+                            planned_last.reshape(-1)[last.clamp(min=0)],
+                            slice_qp).reshape(nr, nc)
+    up = lambda a: a.repeat_interleave(c4, 0).repeat_interleave(c4, 1)
+    before = zin4 < up(zfirst)
+    return torch.where(before, up(qprev), qp4.to(dev, torch.int64)) \
+        .to(torch.int32)
+
+
+def effective_qp4_cuda(qp4, coef, zin4, zcu4, slice_qp: int, wpp: bool,
+                       cs: int, pic_w: int, pic_h: int) -> torch.Tensor:
+    """`effective_qp4_plain` on the card, the per-cell coefficient flags
+    taken from the (y, cb, cr) int16 level planes; returns uint8 QPs."""
+    dev = coef[0].device
+    h4, w4 = qp4.shape
+    c4 = cs >> 2
+    if h4 % c4 or w4 % c4 or c4 * c4 > 1024:
+        raise ValueError("the 4x4 grid must cover whole CTBs")
+    nctb = (h4 // c4) * (w4 // c4)
+    i32 = [a.to(device=dev, dtype=torch.int32).contiguous()
+           for a in (qp4, zin4.expand(h4, w4), zcu4.expand(h4, w4))]
+    for c in coef:
+        if c.dtype != torch.int16 or not c.is_contiguous():
+            raise ValueError("level planes must be contiguous int16")
+    scratch = torch.empty((4, nctb), dtype=torch.int32, device=dev)
+    out = torch.empty((h4, w4), dtype=torch.uint8, device=dev)
+    P = _build.ptr
+    _build.check(_build.kernels().ks_inter_eff_qp(
+        P(i32[0]), P(coef[0]), P(coef[1]), P(coef[2]), P(i32[1]),
+        P(i32[2]), P(scratch), P(out), h4, w4, c4, pic_w, pic_h, slice_qp,
+        int(wpp), _build.stream(dev)), "ks_inter_eff_qp")
+    for step in ("ctb", "scan", "apply"):       # its three launches
+        _build.count("inter_eff_qp_" + step)
+    return out
+
+
+def effective_qp4(qp4, coef, zin4, zcu4, slice_qp: int, wpp: bool, cs: int,
+                  pic_w: int, pic_h: int, reference: bool = False):
+    """The decoder's effective QP per 4x4 cell under cu_qp_delta from the
+    final level planes coef (y, cb, cr). CUDA planes launch the kernel;
+    CPU planes, or reference=True, run `effective_qp4_plain`."""
+    dev = coef[0].device
+    if dev.type != "cuda" or reference:
+        return effective_qp4_plain(qp4.to(dev), coded4(coef), zin4, zcu4,
+                                   slice_qp, wpp, cs, pic_w, pic_h)
+    return effective_qp4_cuda(qp4, coef, zin4, zcu4, slice_qp, wpp, cs,
+                              pic_w, pic_h)
+
+
 # ------------------------------------------------------------- entry point
 
 def sao_picture(rec, src, tier: int, qp: int, pic_w: int, pic_h: int,
@@ -357,7 +466,8 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
                      boff: int, toff: int, cbo: int, cro: int,
                      deblock: bool, strong: bool, reference: bool = False,
                      want_pred: bool = False, sao=None, sbh: bool = False,
-                     slot1=None, mv1=None, has_l1: bool = False):
+                     slot1=None, mv1=None, has_l1: bool = False,
+                     wts0=None, wts1=None, dqp=None):
     """Code one P or B picture. src (y, cb, cr) uint8 planes, refs (R, ...)
     uint8 stacks; slot0 (h8*w8,), mv0 (h8*w8, 2) per-cell motion, and
     with has_l1 (a B picture) list 1's slot1 / mv1 (slot -1: the list is
@@ -367,7 +477,11 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
     (n_cu + 1,) float32; intra_sched: the intra CUs' schedule or None;
     bs_in: (e2_v, e2_h, etb_v, etb_h, emv_v, emv_h) per 4x4; qp4 per 4x4;
     sao: None, or (tier, slice_qp, ctb_size) to run `sao_picture`; sbh:
-    sign hiding (the PPS's sign_data_hiding_enabled).
+    sign hiding (the PPS's sign_data_hiding_enabled); wts0 / wts1: the
+    lists' explicit weighted-prediction tables (ops/mc.py::cell_weights)
+    or None; dqp: None, or under cu_qp_delta (zin4, zcu4, slice_qp, wpp,
+    ctb_size) for `effective_qp4`, whose QPs the deblocking filter then
+    reads.
     Returns ((y, cb, cr) deblocked (and SAO-filtered) uint8 planes,
     (y, cb, cr) int16 levels, the SAO parameters or None[, (y, cb, cr) MC
     prediction]). CUDA planes launch the kernels; CPU planes, or
@@ -378,7 +492,7 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
     l1 = (slot1.to(dev), mv1.to(dev)) if has_l1 else None
     pred, rec, coef, cbf4 = fn(src, refs, slot0.to(dev), mv0.to(dev), l1,
                                tu_packs, cu_lam, intra_sched, n_cu, h8, w8,
-                               pic_w, pic_h, strong, sbh)
+                               pic_w, pic_h, strong, sbh, (wts0, wts1))
     if intra_sched is not None:
         rec = [r[None].contiguous() for r in rec]
         coef = [c[None].contiguous() for c in coef]
@@ -390,6 +504,10 @@ def code_inter_frame(src, refs, slot0, mv0, tu_packs: dict, cu_lam,
     bs_in = [a.to(dev) for a in bs_in]
     bs_fn = bs_maps if plain else bs_maps_cuda
     bs_v, bs_h = bs_fn(cbf4, *bs_in, deblock)
+    if dqp is not None:
+        zin4, zcu4, slice_qp, wpp, cs = dqp
+        qp4 = effective_qp4(qp4, coef, zin4, zcu4, slice_qp, wpp, cs,
+                            pic_w, pic_h, reference=reference)
     out = deblock_frames(*(r[None] for r in rec), bs_v[None], bs_h[None],
                          qp4.to(device=dev, dtype=torch.uint8)[None], boff,
                          toff, cbo, cro, pic_w, pic_h, reference=reference)

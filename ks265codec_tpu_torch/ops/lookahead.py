@@ -81,8 +81,32 @@ def inter_cost_plain(cur: torch.Tensor, prev: torch.Tensor):
     return best, ai % NSR - SR, ai // NSR - SR
 
 
-def _pack(ic, pc, dx, dy, want_tree: bool, first: bool) -> torch.Tensor:
-    """Packed float32 rows [icost_sum, pcost_sum, min_sum (+ tree maps)]."""
+def block_var_plain(curs: torch.Tensor) -> torch.Tensor:
+    """(F, h, w) uint8 half planes -> (F, nby, nbx) float32 8x8 variance in
+    the reference backend's order (see the module note). Each fused
+    multiply-add is exact in float64 and rounded once to float32."""
+    b = _blk(curs.to(torch.float64))
+    mean = (b.sum((-2, -1)) * 0.015625)[..., None, None]
+    d = b - mean                                   # exact
+    lanes = torch.zeros(b.shape[:-1], dtype=torch.float64, device=b.device)
+    for c in range(BS):
+        lanes = (d[..., c] * d[..., c] + lanes).to(torch.float32) \
+            .to(torch.float64)
+    return _tree32(lanes.to(torch.float32)) * 0.015625
+
+
+def _tree32(v: torch.Tensor) -> torch.Tensor:
+    """float32 sum of the last axis by halving (lanes i and i + h)."""
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    return v[..., 0]
+
+
+def _pack(ic, pc, dx, dy, want_tree: bool, first: bool,
+          var=None) -> torch.Tensor:
+    """Packed float32 rows [icost_sum, pcost_sum, min_sum (+ variance map)
+    (+ tree maps)]."""
     F = ic.shape[0]
     s_i = ic.reshape(F, -1).sum(1, dtype=torch.int32)
     if first:
@@ -92,10 +116,12 @@ def _pack(ic, pc, dx, dy, want_tree: bool, first: bool) -> torch.Tensor:
         s_p = pc.reshape(F, -1).sum(1, dtype=torch.int32)
         s_m = torch.minimum(ic, pc).reshape(F, -1).sum(1, dtype=torch.int32)
         head = torch.stack([s_i, s_p, s_m], 1).float()
-    if not want_tree:
-        return head
-    flat = [a.reshape(F, -1).float() for a in (ic, pc, dx, dy)]
-    return torch.cat([head] + flat, 1)
+    parts = [head]
+    if var is not None:
+        parts.append(var.reshape(F, -1).to(head.device))
+    if want_tree:
+        parts += [a.reshape(F, -1).float() for a in (ic, pc, dx, dy)]
+    return torch.cat(parts, 1)
 
 
 def features_plain(curs: torch.Tensor, prevs: torch.Tensor):
@@ -142,6 +168,22 @@ def features_cuda(curs: torch.Tensor, prevs: torch.Tensor):
     return maps[0], maps[1], maps[2], maps[3]
 
 
+def block_var_cuda(curs: torch.Tensor) -> torch.Tensor:
+    _check(curs, "half planes")
+    if not curs.is_cuda or not curs.is_contiguous():
+        raise ValueError("half planes must be contiguous CUDA")
+    F, h, w = curs.shape
+    if h % BS or w % BS:
+        raise ValueError("half planes must be multiples of 8")
+    out = torch.empty((F, h // BS, w // BS), dtype=torch.float32,
+                      device=curs.device)
+    rc = _build.kernels().ks_la_var(_build.ptr(curs), _build.ptr(out), F, h,
+                                    w, _build.stream(curs.device))
+    _build.check(rc, "ks_la_var")
+    _build.count("la_var")
+    return out
+
+
 # ------------------------------------------------------------- entry points
 
 def _use_plain(t: torch.Tensor, reference: bool) -> bool:
@@ -161,32 +203,39 @@ def _features(curs, prevs, reference):
     return features_cuda(curs.contiguous(), prevs.contiguous())
 
 
+def block_var(curs: torch.Tensor, reference: bool = False) -> torch.Tensor:
+    """(F, h, w) uint8 half planes -> (F, h/8, w/8) float32 8x8 variance
+    (`_block_stats`)."""
+    if _use_plain(curs, reference):
+        return block_var_plain(curs)
+    return block_var_cuda(curs.contiguous())
+
+
 def frame_features_batch(curs: torch.Tensor, prevs: torch.Tensor,
                          want_var: bool = False, want_tree: bool = False,
                          reference: bool = False) -> torch.Tensor:
     """(F, h, w) half planes against their previous half planes ->
-    (F, 3 [+ 4 nb]) float32 packed rows. CUDA tensors launch the kernel;
-    CPU tensors, or reference=True, run the plain version."""
-    if want_var:
-        raise NotImplementedError("lookahead variance (adaptive "
-                                  "quantisation) is not ported")
+    (F, 3 [+ nb] [+ 4 nb]) float32 packed rows (the variance map with
+    want_var, the tree maps with want_tree). CUDA tensors launch the
+    kernels; CPU tensors, or reference=True, run the plain versions."""
     ic, pc, dx, dy = _features(curs, prevs, reference)
-    return _pack(ic, pc, dx, dy, want_tree, first=False)
+    var = block_var(curs, reference) if want_var else None
+    return _pack(ic, pc, dx, dy, want_tree, first=False, var=var)
 
 
 def frame_features_first(half_cur: torch.Tensor, want_var: bool = False,
                          want_tree: bool = False,
                          reference: bool = False) -> torch.Tensor:
-    """The first frame of a stream (no inter reference): (1, 3 [+ 4 nb])
-    with pcost 1e18 (and pcost map 1e9, zero offsets with want_tree)."""
-    if want_var:
-        raise NotImplementedError("lookahead variance (adaptive "
-                                  "quantisation) is not ported")
+    """The first frame of a stream (no inter reference): (1, 3 [+ nb]
+    [+ 4 nb]) with pcost 1e18 (and pcost map 1e9, zero offsets with
+    want_tree)."""
     cur = half_cur[None] if half_cur.dim() == 2 else half_cur
     ic, _, _, _ = _features(cur, cur, reference)
+    var = block_var(cur, reference) if want_var else None
     z = torch.zeros_like(ic)
-    out = _pack(ic, z, z, z, want_tree, first=True)
+    out = _pack(ic, z, z, z, want_tree, first=True, var=var)
     if want_tree:
         nb = ic[0].numel()
-        out[:, 3 + nb:3 + 2 * nb] = 1e9
+        off = 3 + (nb if want_var else 0)
+        out[:, off + nb:off + 2 * nb] = 1e9
     return out

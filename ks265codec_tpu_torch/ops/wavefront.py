@@ -531,15 +531,16 @@ def _dense_residual(coef, qp_map, size_pix, classes):
 
 def inter_recon_plain(refs, slot0, mv0, slot1, mv1, has_l1, coefs, log2m8,
                       qp4, qp4_cb, qp4_cr, inter8, sched, strong, width,
-                      height):
+                      height, wts0=None, wts1=None):
     """Plain PyTorch version of K18's reconstruction (the reference's
-    `_recon_inter_filter_core` before its filters, without weights): MC
-    from one or (has_l1) two lists, the dense residual on inter cells, the
-    seeded intra scan. See `recon_inter_filter`."""
+    `_recon_inter_filter_core` before its filters): MC from one or
+    (has_l1) two lists, weighted where wts0 / wts1 are given, the dense
+    residual on inter cells, the seeded intra scan. See
+    `recon_inter_filter`."""
     from .mc import mc_planes
     h8, w8 = log2m8.shape
     pred = mc_planes(refs, slot0, mv0, slot1, mv1, has_l1, h8, w8, width,
-                     height, reference=True)
+                     height, reference=True, wts0=wts0, wts1=wts1)
     size = log2m8.to(torch.int32).repeat_interleave(8, 0) \
         .repeat_interleave(8, 1)
     inter = inter8.bool().repeat_interleave(8, 0).repeat_interleave(8, 1)
@@ -576,7 +577,7 @@ def inter_tu_list(log2m8: np.ndarray, inter8: np.ndarray) -> np.ndarray:
 
 def inter_recon_cuda(refs, slot0, mv0, slot1, mv1, has_l1, coefs, log2m8,
                      qp4, qp4_cb, qp4_cr, inter8, sched, strong, width,
-                     height):
+                     height, wts0=None, wts1=None):
     """K18's reconstruction on the card: K14 (`ks_inter_mc`) into the
     reconstruction planes, one launch of `ks_inter_recon` over the inter
     TUs and K11 over the intra CUs, both in place."""
@@ -591,7 +592,7 @@ def inter_recon_cuda(refs, slot0, mv0, slot1, mv1, has_l1, coefs, log2m8,
     h8, w8 = log2m8.shape
     tab = device_tables(dev)
     recs = mc_planes_cuda(refs, slot0, mv0, slot1, mv1, has_l1, h8, w8,
-                          width, height)
+                          width, height, wts0, wts1)
     tus = torch.from_numpy(inter_tu_list(
         log2m8.cpu().numpy(), inter8.cpu().numpy().astype(bool))).to(dev)
     qps = [q.to(device=dev, dtype=torch.int32).contiguous()
@@ -601,7 +602,8 @@ def inter_recon_cuda(refs, slot0, mv0, slot1, mv1, has_l1, coefs, log2m8,
         P(tus), P(coefs[0]), P(coefs[1]), P(coefs[2]), P(recs[0]),
         P(recs[1]), P(recs[2]), P(qps[0]), P(qps[1]), P(qps[2]), P(tab),
         tus.shape[0], H, W, _build.stream(dev)), "ks_inter_recon")
-    _build.count("inter_recon")
+    _build.count("inter_recon" if wts0 is None and wts1 is None
+                 else "inter_recon_wp")
     recs = [r[None] for r in recs]
     if sched is not None:
         recon_intra_frames_into([c[None] for c in coefs], recs, sched, strong)
@@ -614,9 +616,11 @@ def recon_inter_filter(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
                        sao_chroma: bool, boff: int, toff: int, cbo: int,
                        cro: int, width: int, height: int, cs: int,
                        reference: bool = False, slot1=None, mv1=None,
-                       has_l1: bool = False):
+                       has_l1: bool = False, wts0=None, wts1=None):
     """Reconstruction of one parsed P or B picture (K18): MC from the
     per-8x8-cell motion of one list or, with has_l1 (a B picture), two,
+    with the slice's explicit weights where wts0 / wts1 (the lists' tables,
+    ops/mc.py::cell_weights) are given,
     the dequantised, inverse-transformed residual
     of the inter CUs' TUs (TU == CU) added and clipped, the intra CUs
     reconstructed over it from their levels (the seeded K11 scan), then
@@ -647,12 +651,14 @@ def recon_inter_filter(refs, slot0, mv0, coefs, log2m8, qp4, qp4_cb, qp4_cr,
             planes = inter_recon_plain(
                 refs, slot0.to(dev), mv0.to(dev), *(t.to(dev) for t in l1),
                 has_l1, coefs, log2m8.to(dev), qp4.to(dev), qp4_cb.to(dev),
-                qp4_cr.to(dev), inter8.to(dev), sched, strong, width, height)
+                qp4_cr.to(dev), inter8.to(dev), sched, strong, width, height,
+                wts0, wts1)
         else:
             # the TU list is built on the host from the host maps
             planes = inter_recon_cuda(refs, slot0, mv0, *l1, has_l1, coefs,
                                       log2m8, qp4, qp4_cb, qp4_cr, inter8,
-                                      sched, strong, width, height)
+                                      sched, strong, width, height, wts0,
+                                      wts1)
     if deblock:
         with stage("dec.deblock"):
             planes = deblock_frames(

@@ -16,12 +16,12 @@ and its plain K18 on a B picture of that decode must equal the JAX
 `recon_inter_filter_jit` on the same inputs. The clip moves slowly
 enough for b-adapt to keep the GOP-8, and fresh noise in one frame puts
 intra CUs into B pictures. Under pytest-xdist the reference encodes
-run in one worker and reach the others through a file in the run's
-temporary directory (every worker holding one of these tests would
-otherwise repeat them)."""
+and the port's encodes run once per test run, each in the first worker
+free to take it, and reach the others through files in the run's
+temporary directory (tests/_torch_shared.py): every worker holding one
+of these tests would otherwise repeat the port's encodes, and wait idle
+while another computes the reference's."""
 
-import os
-import pickle
 import types
 
 import numpy as np
@@ -50,6 +50,7 @@ from ks265codec_tpu_torch.ops import wavefront as twf
 from ks265codec_tpu_torch.ops.mc import mc_planes_plain
 from ks265codec_tpu_torch.utils.md5 import frame_md5
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
+from _torch_shared import release_after_module, shared  # noqa: F401
 from test_torch_inter import _unpack_tiers, sched_from_segs
 
 W, H = 128, 96
@@ -111,18 +112,21 @@ def one_thread():
 
 
 @pytest.fixture(scope="module")
-def ref(tmp_path_factory):
-    """The two reference encodes (`_reference`), once per run: an xdist
-    worker computes them under a file lock in the run's shared temporary
-    directory and the others read its pickle."""
-    if os.environ.get("PYTEST_XDIST_WORKER") is None:
-        return _reference()
-    from filelock import FileLock
-    path = tmp_path_factory.getbasetemp().parent / "torch_bframes_ref.pkl"
-    with FileLock(str(path) + ".lock"):
-        if not path.is_file():
-            path.write_bytes(pickle.dumps(_reference()))
-        return pickle.loads(path.read_bytes())
+def both(tmp_path_factory):
+    """The reference encodes (`_reference`) and the port's (`_port`), each
+    once per run."""
+    return shared(tmp_path_factory, {"torch_bframes_ref": _reference,
+                                     "torch_bframes_port": _port})
+
+
+@pytest.fixture(scope="module")
+def ref(both):
+    return both["torch_bframes_ref"]
+
+
+@pytest.fixture(scope="module")
+def port(both):
+    return both["torch_bframes_port"]
 
 
 def _reference():
@@ -170,16 +174,22 @@ def _reference():
     return dict(rec=rec, **streams)
 
 
-@pytest.fixture(scope="module")
-def port(ref):
+def _port():
+    """The port's encodes of both streams on the CPU: per stream the
+    declared reorder depth, the coded slice types, the bytes and the
+    reconstructions in coding order."""
     out = {}
-    for name, (latency, _, _) in STREAMS.items():
+    for name, (latency, n, _) in STREAMS.items():
         enc = HevcEncoder(EncoderConfig(**cfg(latency)), device="cpu")
         efs = []
-        for i, p in enumerate(ref[name]["planes"]):
+        for i, p in enumerate(synth(W, H, n)):
             efs += enc.encode_frame(YUVFrame(*p, poc=i))
         efs += enc.flush()
-        out[name] = (enc, efs)
+        out[name] = dict(
+            reorder=enc.sps.num_reorder_pics[-1],
+            types="".join(e.slice_type for e in efs),
+            bs=b"".join(e.data for e in efs),
+            recons=[(e.recon.y, e.recon.u, e.recon.v) for e in efs])
     return out
 
 
@@ -221,24 +231,23 @@ def test_coded_slice_types(ref, port, name):
     one I P B B B P, in the reference and the port alike."""
     want = STREAMS[name][2]
     assert ref[name]["types"] == want
-    assert "".join(e.slice_type for e in port[name][1]) == want
+    assert port[name]["types"] == want
 
 
 @pytest.mark.parametrize("name", list(STREAMS))
 def test_stream_byte_identical(ref, port, name):
-    enc, efs = port[name]
-    assert enc.sps.num_reorder_pics[-1] == ref[name]["reorder"] \
+    assert port[name]["reorder"] == ref[name]["reorder"] \
         == {"gop8": 3, "gop4": 2}[name]
-    assert b"".join(e.data for e in efs) == ref[name]["bs"]
+    assert port[name]["bs"] == ref[name]["bs"]
 
 
 @pytest.mark.parametrize("name", list(STREAMS))
 def test_recons_equal_reference(ref, port, name):
-    efs = port[name][1]
-    assert len(efs) == len(ref[name]["recons"]) == STREAMS[name][1]
-    for e, want in zip(efs, ref[name]["recons"]):
-        for got, w in zip((e.recon.y, e.recon.u, e.recon.v), want):
-            assert np.array_equal(got, w)
+    recons = port[name]["recons"]
+    assert len(recons) == len(ref[name]["recons"]) == STREAMS[name][1]
+    for got, want in zip(recons, ref[name]["recons"]):
+        for g, w in zip(got, want):
+            assert np.array_equal(g, w)
 
 
 def test_gop8_decodes_on_the_fast_paths(ref, decoded):

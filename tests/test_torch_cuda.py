@@ -5,9 +5,11 @@ low-delay P kernels (K12, K13, K15, K17 with K14) on a 128x96 IPPP
 encode's inputs, the `fast` preset's (K2 alone, K5 at effort 1, K6 with
 RDOQ and sign hiding, K17 with sign hiding), the B pictures' (K13 with
 the bi cost, K14 with both lists, K15 and K17 with list 1 on a 128x96
-GOP-8 encode's inputs, K18 with both lists on its decode), and the
-encoder and decoder on the kernels against themselves on the plain
-versions. Marked `cuda`: they skip where torch
+GOP-8 encode's inputs, K18 with both lists on its decode), cu_qp_delta
+and weighted prediction's (K12's variance, K17's effective-QP chain,
+weighted K14, and the AQ / CU-tree / weighted encodes and their decodes),
+and the encoder and decoder on the kernels against themselves on the
+plain versions. Marked `cuda`: they skip where torch
 finds no CUDA device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -717,6 +719,139 @@ def test_gop8_encode_and_decode_on_the_card(dev):
     bcalls = [(x, k) for x, k in calls if k.get("has_l1")]
     assert len(bcalls) == 7
     for x, k in bcalls:
+        g = wf.recon_inter_filter(*x, **dict(k, reference=False))
+        w = wf.recon_inter_filter(*x, **dict(k, reference=True))
+        for p, q in zip(g, w):
+            assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("kind", ["random", "two_level"])
+def test_lookahead_variance_kernel_matches_plain(dev, kind):
+    """K12's 8x8 variance (aq): random blocks and two-level blocks, whose
+    squared deviations tie; the packed rows with variance and tree maps."""
+    from ks265codec_tpu_torch.ops import lookahead as tla
+    rng = np.random.RandomState(21)
+    if kind == "random":
+        half = rng.randint(0, 256, (4, 72, 128))
+    else:
+        half = np.where(rng.rand(4, 72, 128) < 0.5, 17, 200)
+    half = torch.from_numpy(half.astype(np.uint8)).to(dev)
+    assert torch.equal(tla.block_var(half), tla.block_var(half,
+                                                          reference=True))
+    cur, prev = half[1:].contiguous(), half[:-1].contiguous()
+    got = tla.frame_features_batch(cur, prev, True, True)
+    want = tla.frame_features_batch(cur, prev, True, True, reference=True)
+    assert torch.equal(got, want)
+    assert torch.equal(tla.frame_features_first(half[0], True, True),
+                       tla.frame_features_first(half[0], True, True,
+                                                reference=True))
+
+
+@pytest.mark.parametrize("wpp", [False, True], ids=["no_wpp", "wpp"])
+def test_effective_qp_kernel_matches_plain(dev, wpp):
+    """K17's effective-QP chain on random per-CTB QPs, CU trees and sparse
+    levels of a 200x136 picture (edge CTBs partly outside)."""
+    from ks265codec_tpu_torch.encode.merge_vec import zscan_vals
+    from ks265codec_tpu_torch.ops import intercode
+    rng = np.random.RandomState(22 + wpp)
+    pic_w, pic_h, ph, pw = 200, 136, 192, 256
+    h4, w4 = ph // 4, pw // 4
+    lg = np.full((h4, w4), 3 + rng.randint(0, 4), np.int32)
+    lg[:, : w4 // 2] = 4
+    s4 = 1 << (lg - 2)
+    zloc = (zscan_vals(h4, w4, 6) & 255).astype(np.int32)
+    zcu = zloc[np.arange(h4)[:, None] & ~(s4 - 1),
+               np.arange(w4)[None, :] & ~(s4 - 1)]
+    qp4 = np.repeat(np.repeat(rng.randint(20, 40, (3, 4)), 16, 0), 16, 1)
+    coef = [np.where(rng.rand(ph >> s, pw >> s) < 0.002,
+                     rng.randint(-3, 4, (ph >> s, pw >> s)), 0)
+            for s in (0, 1, 1)]
+    coef = [torch.from_numpy(c.astype(np.int16)).to(dev) for c in coef]
+    args = (torch.from_numpy(qp4.astype(np.int32)).to(dev), coef,
+            torch.from_numpy(zloc).to(dev), torch.from_numpy(zcu).to(dev),
+            30, wpp, 64, pic_w, pic_h)
+    got = intercode.effective_qp4(*args)
+    want = intercode.effective_qp4(*args, reference=True)
+    assert torch.equal(got.int(), want.int())
+    assert bool((want.cpu() != torch.from_numpy(qp4)).any())
+
+
+@pytest.mark.parametrize("bi", [False, True], ids=["uni", "bi"])
+def test_inter_mc_weighted_kernel_matches_plain(dev, bi):
+    """K14 with explicit weights (flags per slot and component, negative
+    offsets, log2Wd 12 and 7), one or both lists."""
+    from ks265codec_tpu_torch.ops.mc import mc_planes_cuda, mc_planes_plain
+    rng = np.random.RandomState(23 + bi)
+    R, ph, pw, pic_w, pic_h = 3, 128, 192, 176, 120
+    refs = [torch.from_numpy(rng.randint(0, 256, (R, ph >> s, pw >> s))
+                             .astype(np.uint8)).to(dev) for s in (0, 1, 1)]
+    h8, w8 = ph // 8, pw // 8
+    kind = rng.randint(0, 3, h8 * w8) if bi else np.zeros(h8 * w8, int)
+    slot0 = np.where(kind == 1, -1, rng.randint(0, R, h8 * w8))
+    slot1 = np.where(kind == 0, -1, rng.randint(0, R, h8 * w8))
+    mv0, mv1 = (rng.randint(-90, 90, (h8 * w8, 2)) for _ in range(2))
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (slot0, mv0, slot1, mv1)]
+
+    def wts(lwd):
+        flag = rng.rand(R, 3) < 0.7
+        return (flag, rng.randint(20, 120, (R, 3)).astype(np.int32),
+                rng.randint(-30, 30, (R, 3)).astype(np.int32),
+                np.array([lwd, lwd - 1, lwd - 1], np.int32))
+
+    for lwd in (12, 7):
+        w0, w1 = wts(lwd), (wts(lwd) if bi else None)
+        got = mc_planes_cuda(refs, *args, bi, h8, w8, pic_w, pic_h, w0, w1)
+        want = mc_planes_plain(*refs, *args, bi, h8, w8, pic_w, pic_h, w0,
+                               w1)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def _fade(n, w, h):
+    frames = _frames(n, w, h, 24)
+    return [YUVFrame(np.clip(np.rint(y * 0.95 ** t), 0, 255)
+                     .astype(np.uint8), u, v, poc=t)
+            for t, (y, u, v) in enumerate(frames)]
+
+
+@pytest.mark.parametrize("over", [
+    dict(preset="fast", qp=27, cutree=1, aq_mode=2, weightp=True),
+    dict(preset="fast", latency="zerolatency", intra_period=0, qp=30,
+         aq_mode=1, weightp=True),
+    dict(preset="fast", qp=27, intra_period=1, tiles="2x2", aq_mode=1)],
+    ids=["vod", "live", "intra"])
+def test_aq_wp_encode_and_decode_on_the_card(dev, over):
+    """AQ, CU-tree and weighted prediction on a fade: the stream on the
+    kernels == on the plain versions; the card's decode (K18 with weights
+    and cu_qp_delta QPs) gives the encoder's md5s; K18 equals its plain
+    version on every weighted picture."""
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    frames = _fade(9, 128, 96)
+    cfg = EncoderConfig(width=128, height=96, rc=0, frame_rate=30, **over)
+    a, ra = encode_sequence(frames, cfg, device=dev)
+    cfg = EncoderConfig(width=128, height=96, rc=0, frame_rate=30, **over)
+    b, rb = encode_sequence(frames, cfg, device=dev, reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in ra]
+    assert want == [frame_md5(r) for r in rb]
+    calls = []
+    orig = wf.recon_inter_filter
+
+    def spy(*args, **k):
+        calls.append((args, k))
+        return orig(*args, **k)
+
+    wf.recon_inter_filter = spy
+    try:
+        dec = HevcDecoder(device=dev)
+        got = [frame_md5(f) for f in dec.decode_all(a)]
+    finally:
+        wf.recon_inter_filter = orig
+    assert got == want and dec.fast_pictures == len(frames)
+    for x, k in calls:
+        if k.get("wts0") is None:
+            continue
         g = wf.recon_inter_filter(*x, **dict(k, reference=False))
         w = wf.recon_inter_filter(*x, **dict(k, reference=True))
         for p, q in zip(g, w):

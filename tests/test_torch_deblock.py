@@ -9,6 +9,7 @@ import torch
 from ks265codec_tpu.ops.deblock import deblock_frame_device
 from ks265codec_tpu.ops.deblock import intra_bs_maps as jax_bs_maps
 from ks265codec_tpu_torch.ops import deblock as tdb
+from _torch_shared import release_after_module  # noqa: F401
 
 
 def _random_log2m(rng, h8, w8):

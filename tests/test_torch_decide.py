@@ -15,6 +15,7 @@ import torch
 
 from ks265codec_tpu.ops.decide import decide_frames as jax_decide
 from ks265codec_tpu_torch.ops import decide as tdec
+from _torch_shared import release_after_module  # noqa: F401
 
 W, H = 192, 128
 QPS = (22, 27, 37)
@@ -102,6 +103,28 @@ def _frame720():
     return tuple(pad_plane(p.astype(np.uint8), ph, pw).astype(np.uint8)[None]
                  for p, ph, pw in ((y, 768, 1280), (u, 384, 640),
                                    (v, 384, 640)))
+
+
+@pytest.mark.parametrize("w,h", [(320, 256), (192, 320)])
+def test_frame_total_matches_reference(w, h):
+    """The frame total `cplx` at 320x256 (a map of 8 x 10 32-blocks: the
+    reference backend's 8-lane vector over each row's columns) and at
+    192x320 (10 x 6: its rows in order), on a 2-frame batch."""
+    rng = np.random.RandomState(w + h)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ys, us, vs = [], [], []
+    for t in range(2):
+        y = 128 + 60 * np.sin((xx + 3 * t) / (13.0 + t)) \
+            + 40 * np.cos((yy - 2 * t) / 17.0) + rng.randn(h, w) * (3 + 7 * t)
+        ys.append(np.clip(y, 0, 255).astype(np.uint8))
+        for lst in (us, vs):
+            lst.append(np.clip(128 + rng.randn(h // 2, w // 2) * 9, 0,
+                               255).astype(np.uint8))
+    y, u, v = np.stack(ys), np.stack(us), np.stack(vs)
+    ref = jax_decide(y, u, v, [27, 32], 1.0, effort=1, want_costs=True)
+    got = tdec.decide_frames(torch.from_numpy(y), torch.from_numpy(u),
+                             torch.from_numpy(v), [27, 32], effort=1)
+    assert got["cplx"].numpy().tolist() == [np.float32(r[3]) for r in ref]
 
 
 @pytest.mark.parametrize("effort", [0, 1])

@@ -35,6 +35,7 @@ from ks265codec_tpu_torch.ops import decide as tdec
 from ks265codec_tpu_torch.ops import wavefront as twf
 from ks265codec_tpu_torch.utils.md5 import frame_md5
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
+from _torch_shared import release_after_module  # noqa: F401
 
 W = H = 128
 
@@ -187,21 +188,56 @@ def test_decoder_matches_reference_decoder(name, monkeypatch):
 
 
 def test_b_slices_are_eligible_weighted_prediction_raises():
-    """B slices take the inter fast path as P slices do; a slice with
-    explicit weighted prediction raises (not ported)."""
+    """B slices take the inter fast path as P slices do, and so do slices
+    with explicit weighted prediction, which the fast path now covers
+    (the name is kept from when they raised)."""
     dec = HevcDecoder(device="cpu")
     enc = HevcEncoder(EncoderConfig(width=W, height=H, preset="ultrafast",
                                     intra_period=1), device="cpu")
     b = types.SimpleNamespace(slice_type=B_SLICE, weights=None)
     assert dec._fast_eligible(enc.sps, enc.pps, b)
     wp = types.SimpleNamespace(slice_type=B_SLICE, weights=[[], []])
-    with pytest.raises(NotImplementedError, match="weighted prediction"):
-        dec._fast_eligible(enc.sps, enc.pps, wp)
+    assert dec._fast_eligible(enc.sps, enc.pps, wp)
     wp = types.SimpleNamespace(slice_type=P_SLICE, weights=[[], []])
-    with pytest.raises(NotImplementedError, match="weighted prediction"):
-        dec._fast_eligible(enc.sps, enc.pps, wp)
+    assert dec._fast_eligible(enc.sps, enc.pps, wp)
     p = types.SimpleNamespace(slice_type=P_SLICE, weights=None)
     assert dec._fast_eligible(enc.sps, enc.pps, p)
+
+
+def test_later_cra_outputs_its_rasl_pictures():
+    """An open-GOP stream joined at a CRA (spec 8.1): the RASL pictures of
+    the CRA that opens the stream are discarded (NoRaslOutputFlag = 1),
+    those of every later CRA are decoded and output. The reference's
+    64x64 stream with intra_period 4 codes every inter picture as a RASL
+    lead (I0, CRA4 with RASL 1-3, CRA8 with RASL 5-7); the stream starts
+    at CRA4, so POCs 4-8 are the output, with the encoder's md5s. (The
+    JAX decoder outputs only 4 and 8 here: its flag is not cleared by a
+    later CRA; the port does not carry that fault.)"""
+    rng = np.random.RandomState(4)
+    yy, xx = np.mgrid[0:64, 0:64]
+    frames = []
+    for t in range(9):
+        y = np.clip(120 + 50 * np.sin((xx + 2 * t) / 11.0)
+                    + 30 * np.cos((yy - t) / 9.0) + rng.randn(64, 64) * 2,
+                    0, 255).astype(np.uint8)
+        frames.append(JaxFrame(y, np.full((32, 32), 128, np.uint8),
+                               np.full((32, 32), 120, np.uint8), poc=t))
+    from ks265codec_tpu.encode.encoder import HevcEncoder as JaxEncoder
+    enc = JaxEncoder(JaxConfig(width=64, height=64, preset="ultrafast",
+                               qp=30, rc=0, open_gop=True, intra_period=4,
+                               frame_rate=30))
+    efs = []
+    for f in frames:
+        efs += enc.encode_frame(f)
+    efs += enc.flush()
+    assert [(e.poc, e.slice_type) for e in efs] == [
+        (0, "I"), (4, "I"), (1, "B"), (2, "B"), (3, "B"), (8, "I"),
+        (5, "B"), (6, "B"), (7, "B")]
+    want = {e.display_idx: jax_md5(e.recon) for e in efs}
+    got = HevcDecoder(device="cpu").decode_all(b"".join(e.data
+                                                        for e in efs[1:]))
+    assert [f.poc for f in got] == [4, 5, 6, 7, 8]
+    assert [frame_md5(f) for f in got] == [want[f.poc] for f in got]
 
 
 def test_p_slices_outside_coverage_raise_on_the_card():

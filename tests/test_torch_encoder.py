@@ -16,6 +16,7 @@ from ks265codec_tpu.utils.yuv import YUVFrame as JaxFrame
 from ks265codec_tpu_torch.encode.config import EncoderConfig
 from ks265codec_tpu_torch.encode.encoder import HevcEncoder, encode_sequence
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
+from _torch_shared import release_after_module  # noqa: F401
 
 W, H, N = 192, 128, 4
 
@@ -96,12 +97,13 @@ def test_batches_and_pipelining_do_not_change_bytes():
     (dict(intra_period=32), "inter coding"),
     (dict(rc=1, bitrate_kbps=500), "rate control"),
     (dict(ssim=1), "SSIM"),
-    (dict(aq_mode=1), "adaptive quantisation"),
+    (dict(pass_num=1), "two-pass"),
     (dict(pcm=True), "PCM"),
     (dict(slices=2, tiles=""), "multiple slices"),
     (dict(fpp=False), "per-frame path"),
     (dict(preset="medium", intra_period=0, latency="zerolatency"),
-     "weighted prediction"),
+     "NxN intra partitions"),
+    (dict(preset="medium", aq_mode=1), "NxN intra partitions"),
 ])
 def test_unported_configurations_raise(overrides, missing):
     kw = _cfg("2x2")

@@ -39,6 +39,7 @@ from ks265codec_tpu_torch.ops import intercode as tic
 from ks265codec_tpu_torch.utils.md5 import frame_md5
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
 from test_torch_inter import sched_from_segs, synth
+from _torch_shared import release_after_module  # noqa: F401
 
 W, H = 128, 96
 INTRA = dict(width=W, height=H, preset="fast", qp=27, intra_period=1)

@@ -31,6 +31,7 @@ from ks265codec_tpu_torch.ops import me2 as tme
 from ks265codec_tpu_torch.ops.mc import mc_planes_plain
 from ks265codec_tpu_torch.ops.wavefront import NFIELDS, LevelSchedule
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
+from _torch_shared import release_after_module  # noqa: F401
 
 W, H, N = 128, 96, 6
 CFG = dict(width=W, height=H, preset="ultrafast", latency="zerolatency",
@@ -289,10 +290,10 @@ def test_stream_holds_p_pictures_with_intra_cus(ref, port):
 
 @pytest.mark.parametrize("over,what", [
     (dict(partitions=1), "inter partitions"),
-    (dict(aq_mode=1), "adaptive quantisation"),
+    (dict(intra_tu_depth=1), "intra TU split"),
     (dict(refs=2), "refs > 1"),
     (dict(tiles="2x1"), "tiles with inter coding"),
-    (dict(weightp=True), "weighted prediction"),
+    (dict(intra_nxn=True), "NxN intra partitions"),
     (dict(rc=1, bitrate_kbps=500), "rate control"),
 ])
 def test_outside_the_envelope_raises(over, what):

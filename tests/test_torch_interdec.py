@@ -43,6 +43,7 @@ from ks265codec_tpu_torch.ops import wavefront as twf
 from ks265codec_tpu_torch.utils.md5 import frame_md5
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
 from test_torch_inter import sched_from_segs, synth
+from _torch_shared import release_after_module  # noqa: F401
 
 W, H, N = 128, 96, 6
 CFG = dict(width=W, height=H, preset="ultrafast", latency="zerolatency",

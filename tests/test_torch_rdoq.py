@@ -17,6 +17,7 @@ from ks265codec_tpu.hevc.tables import QUANT_SCALE
 from ks265codec_tpu.ops.transforms import quantize
 from ks265codec_tpu_torch.encode import rdoq as trdoq
 from ks265codec_tpu_torch.encode import sbh as tsbh
+from _torch_shared import release_after_module  # noqa: F401
 
 QPS = (0, 22, 30, 37, 51)
 SIZES = (4, 8, 16, 32)

@@ -24,6 +24,7 @@ from ks265codec_tpu_torch.ops.saostats import (sao_frame_stats,
                                                sao_stats_frames)
 from ks265codec_tpu_torch.utils.yuv import YUVFrame
 from test_torch_decoder import _frames
+from _torch_shared import release_after_module  # noqa: F401
 
 H, W, PIC_W, PIC_H = 128, 192, 176, 112
 

@@ -15,6 +15,7 @@ from ks265codec_tpu.ops.wavefront import WavefrontIntraCoder as JaxCoder
 from ks265codec_tpu_torch.encode.intra_frame import decision_maps8, pad_plane
 from ks265codec_tpu_torch.ops import decide as tdec
 from ks265codec_tpu_torch.ops import wavefront as twf
+from _torch_shared import release_after_module  # noqa: F401
 
 W, H = 192, 128
 QPS = (27, 37)

@@ -1,6 +1,6 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Eight runs, each profiled the same way after a warm-up: the encode of the
+Eleven runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
 QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
 the decode of the stream it writes, the low-delay P encode of
@@ -12,7 +12,13 @@ hiding, the effort-1 decision, SAO tier 3), and chip_smoke.py's fast
 all-intra encode (the main path's configuration with the fast preset, 16
 frames), then chip_smoke.py's B path (1280x720, fast, offline, QP 27, the
 default hierarchical GOP-8, 25 frames: one IDR, three GOP-8s) and the
-decode of its stream.
+decode of its stream, then chip_smoke.py's cu_qp_delta and weighted
+prediction legs on its luma fade: the VOD encode (the B configuration
+with CU-tree, aq_mode 2 and weightp, 17 frames), its decode, and the
+live encode (bench.py's inter leg with aq_mode 1 and weightp, 16
+frames), whose host stages add `enc.weightp` (the weight fit and its
+luma fetch), `enc.effective_qp` (the host walk of the decoder's QPs),
+`la.aq_offsets` and `la.cutree`.
 Each is run once plain for the fps, once with the stage trace on (host
 wall time per stage: for the all-intra encode upload, decide, code,
 deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
@@ -45,7 +51,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import synth_frames  # noqa: E402
+from chip_smoke import (AQWP_LIVE, AQWP_VOD, fade_frames,  # noqa: E402
+                        synth_frames)
 from ks265codec_tpu_torch.decode.decoder import HevcDecoder  # noqa: E402
 from ks265codec_tpu_torch.encode.config import EncoderConfig  # noqa: E402
 from ks265codec_tpu_torch.encode.encoder import HevcEncoder  # noqa: E402
@@ -80,6 +87,16 @@ def encode_b(frames):
     enc = HevcEncoder(EncoderConfig(width=1280, height=720, preset="fast",
                                     latency="offline", rc=0, qp=27,
                                     frame_rate=30))
+    out = []
+    for f in frames:
+        out += enc.encode_frame(f)
+    out += enc.flush()
+    torch.cuda.synchronize()
+    return out
+
+
+def encode_cfg(frames, cfg: dict):
+    enc = HevcEncoder(EncoderConfig(**cfg))
     out = []
     for f in frames:
         out += enc.encode_frame(f)
@@ -175,6 +192,16 @@ def main() -> int:
     bstream = b"".join(e.data for e in encode_b(bclip))
     decode(bstream)                                     # warm-up
     profile("B decode", lambda: decode(bstream), len(bclip))
+    fade = fade_frames(frames, 17)
+    encode_cfg(fade[:9], AQWP_VOD)                      # warm-up
+    profile("AQ/WP VOD encode", lambda: encode_cfg(fade, AQWP_VOD),
+            len(fade))
+    vstream = b"".join(e.data for e in encode_cfg(fade, AQWP_VOD))
+    decode(vstream)                                     # warm-up
+    profile("AQ/WP VOD decode", lambda: decode(vstream), len(fade))
+    encode_cfg(fade[:4], AQWP_LIVE)                     # warm-up
+    profile("AQ/WP live encode", lambda: encode_cfg(fade[:16], AQWP_LIVE),
+            16)
     return 0
 
 
