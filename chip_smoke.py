@@ -32,7 +32,9 @@ port's package is not beside it. Phases, each printed as one line:
      decisions, K2 alone (RDOQ / sign hiding, csrc/rdoq.cu) on seeded
      random coefficients at every TU size, scan and flag combination, as
      many TUs of each size as that batch's schedule holds, and K17 with
-     sign hiding on the first P picture of bench.py's inter leg;
+     sign hiding on the first P picture of bench.py's inter leg; K5's
+     NxN tier on the 16-frame batch (the pass with nxn=True, all 13 maps,
+     NxN taken and split16 moved; the tier's two kernels alone, timed);
   4. the main path: HevcEncoder with bench.py's configuration (1280x720,
      ultrafast, QP 27, all-intra, tiles 8x6, SAO from the preset) on 32
      frames, once to warm up and once timed with the launch counts reset
@@ -119,7 +121,17 @@ port's package is not beside it. Phases, each printed as one line:
      intra_period 0, aq_mode 1, weightp) on 16 frames timed and decoded;
      (e) all-intra AQ (fast, aq_mode 1, tiles 8x6) on 4 frames against the
      plain versions and decoded; (f) app_encoder -preset fast -aq 2 and
-     app_decoder -md5 1.
+     app_decoder -md5 1;
+ 16. the medium preset, EncoderConfig's defaults (offline GOP-8, QP 26,
+     the NxN tier on the IDR, the intra TU-split flag, CU-tree, weightp,
+     SAO tier 4, RDOQ, sign hiding), on the luma fade: (a) 9 frames on the
+     kernels give the plain versions' stream and recons; (b) 17 frames
+     timed with the launch counts reset (the NxN kernels must launch);
+     (c) the card's decode of that stream, timed: every picture through
+     the fast paths, the encoder's md5s; (d) medium all-intra AQ on 4
+     frames (the tier on every frame) against the plain versions and
+     decoded; (e) app_encoder with its defaults (no -preset, no -rc) on 10
+     frames and app_decoder -md5 1 on the card, the encoder's recon md5s.
 K2 runs inlined in K6 and K17: its launches are those of the K6 and K17
 kernels that ran its code (`intra_level_k2`, `inter_tu_class_k2`).
 The line before the last is the JSON kernel table with the fps of every
@@ -171,6 +183,13 @@ AQWP_INTRA = dict(width=1280, height=720, preset="fast", rc=0, qp=27,
                   intra_period=1, tiles="8x6", aq_mode=1, frame_rate=30)
 AQWP_ROWS = ("lookahead_var", "inter_code_dqp_wp", "inter_mc_wp",
              "inter_recon_wp")
+# the medium preset: EncoderConfig's defaults (offline GOP-8 with b-adapt,
+# QP 26, the NxN tier on the IDR, the intra TU-split flag, CU-tree,
+# weightp, SAO tier 4, RDOQ, sign hiding) at 720p, and its all-intra AQ
+MEDIUM_FRAMES = 17
+MEDIUM = dict(width=1280, height=720, frame_rate=30)
+MEDIUM_INTRA = dict(MEDIUM, intra_period=1, aq_mode=1)
+MEDIUM_ROWS = ("decide_nxn",)
 # the three launches of K17's effective-QP chain (`ks_inter_eff_qp`)
 EFF_QP = ["inter_eff_qp_ctb", "inter_eff_qp_scan", "inter_eff_qp_apply"]
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
@@ -581,6 +600,7 @@ def fast_kernel_phases(src, dargs, batch_tiled, yuv, dev) -> dict:
           f"{float(got['cplx'].sum()):.1f} over {F} frames), kernel "
           f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
           flush=True)
+    rows["decide_nxn"] = nxn_phase(src, dargs, got)
 
     # K6 with RDOQ and sign hiding on those decisions, tiles 8x6
     maps = {k: v.cpu().numpy() for k, v in got.items()}
@@ -711,6 +731,67 @@ def fast_kernel_phases(src, dargs, batch_tiled, yuv, dev) -> dict:
         a, k, gk, gp, "inter_code_sbh", ["inter_tu_class_k2", "inter_gate",
                                          "inter_finish", "inter_bs"])
     return rows
+
+
+def nxn_phase(src, dargs, off: dict) -> dict:
+    """K5's NxN tier on the main path's 16-frame 720p batch at effort 1:
+    the whole pass with nxn=True on the kernels against its plain version
+    (all 13 maps, floats and cplx bit for bit), with NxN taken and split16
+    moved against the nxn=False maps `off`; then the tier's two kernels
+    alone (`nxn_cuda`) against `nxn_plain` on the plain 8 tier's costs,
+    timed. Returns the table row."""
+    from ks265codec_tpu_torch.interop import device_bits_table
+    from ks265codec_tpu_torch.ops import decide as dcd
+    got = dcd.decide_frames_cuda(*src, *dargs, effort=1, nxn=True)
+    want = dcd.decide_frames_plain(*src, *dargs, effort=1, nxn=True)
+    torch.cuda.synchronize()
+    for name in dcd.MAP_NAMES:
+        if not torch.equal(got[name], want[name]):
+            raise AssertionError(f"K5 decide (NxN): map {name} differs")
+    err = max(max_abs_err(got[k].to(torch.float64), want[k].to(torch.float64))
+              for k in dcd.MAP_NAMES)
+    n_nxn = int(got["nxn8"].sum())
+    moved = int((got["split16"] != off["split16"]).sum())
+    if not (n_nxn > 0 and moved > 0):
+        raise AssertionError(f"the NxN tier took {n_nxn} CUs and moved "
+                             f"{moved} split16 cells")
+    qp, qpc, lam, ls = dargs
+    dev = src[0].device
+    btab = device_bits_table(dev)
+    _, cost8, _, cl8 = dcd._tier(*(p.to(torch.int32) for p in src), qp, qpc,
+                                 lam, ls, 8, btab, effort=1, luma_cost=True)
+    tk = dcd.nxn_cuda(src[0], qp, lam, ls, cl8, cost8)
+    tp = dcd.nxn_plain(src[0], qp, lam, ls, cl8, cost8, btab)
+    torch.cuda.synchronize()
+    for what, a, b in zip(("mode4", "nxn8", "cost8"), tk, tp):
+        if not torch.equal(a, b.to(a.dtype)):
+            raise AssertionError(f"K5 NxN tier: {what} differs")
+    err = max(err, max_abs_err([t.double() for t in tk],
+                               [t.double() for t in tp]))
+    ms = cuda_ms(lambda: dcd.nxn_cuda(src[0], qp, lam, ls, cl8, cost8))
+    plain = cuda_ms(lambda: dcd.nxn_plain(src[0], qp, lam, ls, cl8, cost8,
+                                          btab), reps=3, warm=False)
+    # operations: per 4x4 luma block the 35 modes' prediction and 4x4
+    # Hadamard (about 10 integer ops per sample and mode, as K5's rows
+    # count) and the winner's forward transform (2 stages of 4
+    # multiply-adds per sample, matrix form); bytes: the luma planes, cl8
+    # and cost8 read once, mode4 (int32), nxn8 and cost8 written
+    F, ph, pw = src[0].shape
+    nb4 = F * (ph // 4) * (pw // 4)
+    ops = nb4 * (35 * 16 * 10 + 16 * 2 * 4)
+    nbytes = F * ph * pw + sum(t.numel() * t.element_size()
+                               for t in (cl8, cost8) + tuple(tk))
+    bnd, by = bound_ms(nbytes, ops)
+    print(f"phase K5 NxN (effort 1, {F} frames): 13 maps of the pass equal, "
+          f"{n_nxn} CUs NxN, {moved} split16 cells moved against nxn=False; "
+          f"the tier alone: kernels {ms:.3f} ms, plain {plain:.3f} ms, bound "
+          f"{bnd:.4f} ms ({by})", flush=True)
+    return dict(name="decide_nxn", route="cuda",
+                source="ks265codec_tpu_torch/csrc/decide.cu",
+                replaces="ks265codec_tpu/ops/decide.py:315",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=None,
+                counters=["decide_nxn_a", "decide_nxn_b"])
 
 
 def inter_code_phase(a, k, gk, gp, name: str, counters: list):
@@ -1634,6 +1715,154 @@ def aqwp_path(yuv, card: str, check_counts, rows: dict) -> dict:
                 aq_wp_ippp_decode_fps=fps_bd)
 
 
+def medium_path(yuv, card: str, check_counts, rows: dict) -> dict:
+    """Phase 16, the medium preset (EncoderConfig's defaults) on the luma
+    fade: (a) 9 frames on the kernels against the plain versions (stream
+    and recons); (b) 17 frames timed with the launch counts reset (the
+    NxN tier on the IDR); (c) the card's decode of that stream, timed:
+    every picture through the fast paths, the encoder's md5s; (d) medium
+    all-intra AQ on 4 frames (the tier on every frame) against the plain
+    versions and decoded on the card; (e) app_encoder with its defaults
+    (no -preset, no -rc) on 10 frames and app_decoder -md5 1 on the card.
+    Returns the legs' fps."""
+    from ks265codec_tpu_torch.cli import app_decoder, app_encoder
+    from ks265codec_tpu_torch.decode.decoder import HevcDecoder
+    from ks265codec_tpu_torch.encode.config import EncoderConfig
+    from ks265codec_tpu_torch.encode.encoder import HevcEncoder
+    from ks265codec_tpu_torch.ops import _build
+    fade = fade_frames(yuv, MEDIUM_FRAMES)
+
+    def encode(cfg, frames_in, reference=False):
+        enc = HevcEncoder(EncoderConfig(**cfg), reference=reference)
+        efs = []
+        for fr in frames_in:
+            efs += enc.encode_frame(fr)
+        return efs + enc.flush(), enc
+
+    # ---- 16a: 9 frames on the kernels (the warm-up) and on the plain
+    # versions
+    ka, enc = encode(MEDIUM, fade[:9])
+    if not (enc.cfg.preset == "medium" and enc.cfg.intra_nxn
+            and enc.sps.max_transform_hierarchy_depth_intra == 1):
+        raise AssertionError("EncoderConfig's defaults: not medium with NxN "
+                             "and the intra TU-split flag")
+    kb, _ = encode(MEDIUM, fade[:9], reference=True)
+    if b"".join(e.data for e in ka) != b"".join(e.data for e in kb) or \
+            md5s(e.recon for e in ka) != md5s(e.recon for e in kb):
+        raise AssertionError("9-frame medium stream or recon: kernels and "
+                             "plain versions differ")
+    print(f"phase medium kernels vs plain stream: 9 frames "
+          f"({sum(len(e.data) for e in ka)} bytes, slice types "
+          f"{''.join(e.slice_type for e in ka)}) identical, recon md5s "
+          "equal", flush=True)
+
+    # ---- 16b: the timed encode
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    mefs, _ = encode(MEDIUM, fade)
+    torch.cuda.synchronize()
+    msecs = time.perf_counter() - t0
+    mcounts = dict(_build.launches)
+    rows["decide_nxn"]["launches"] = check_counts(
+        rows["decide_nxn"]["counters"], mcounts, "medium path")
+    check_counts(["decide_pass_a", "intra_level_k2", "deblock_edges",
+                  "sao_stats", "sao_apply", "la_features", "me_bi_cost8",
+                  "inter_decide", "inter_mc_bi", "sao_decide"] + EFF_QP,
+                 mcounts, "medium path")
+    mstream = b"".join(e.data for e in mefs)
+    mrec = sorted(mefs, key=lambda e: e.display_idx)
+    medium_fps = len(mefs) / msecs
+    print(f"phase medium path: {len(mefs)} frames {W}x{H} (EncoderConfig's "
+          f"defaults: medium offline QP 26, luma fade) in {msecs:.3f} s = "
+          f"{medium_fps:.3f} fps on {card}; stream {len(mstream)} bytes; "
+          f"slice types {''.join(e.slice_type for e in mefs)}; launches "
+          f"{mcounts}", flush=True)
+
+    # ---- 16c: the card decode
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    dec = HevcDecoder()
+    out = dec.decode_all(mstream)
+    torch.cuda.synchronize()
+    dsecs = time.perf_counter() - t0
+    dcounts = dict(_build.launches)
+    if dec.fast_pictures != MEDIUM_FRAMES or len(out) != MEDIUM_FRAMES:
+        raise AssertionError(f"medium decode: {dec.fast_pictures} of "
+                             f"{len(out)} pictures took the fast paths")
+    if md5s(out) != md5s(e.recon for e in mrec):
+        raise AssertionError("medium decode: frames differ from the "
+                             "encoder's reconstruction")
+    check_counts(["intra_recon", "inter_recon", "inter_mc_bi",
+                  "deblock_edges", "sao_apply"], dcounts, "medium decode")
+    medium_decode_fps = MEDIUM_FRAMES / dsecs
+    print(f"phase medium decode: {MEDIUM_FRAMES} frames in {dsecs:.3f} s = "
+          f"{medium_decode_fps:.3f} fps on {card}; all "
+          f"{dec.fast_pictures} through the fast paths, md5 equal to the "
+          f"encoder's recon; launches {dcounts}", flush=True)
+
+    # ---- 16d: medium all-intra AQ (the NxN tier on every frame)
+    _build.reset_launches()
+    cefs, _ = encode(MEDIUM_INTRA, fade[:4])
+    ccounts = dict(_build.launches)
+    check_counts(["la_var", "decide_nxn_a", "decide_nxn_b",
+                  "intra_level_k2"], ccounts, "medium all-intra AQ")
+    cp, _ = encode(MEDIUM_INTRA, fade[:4], reference=True)
+    cstream = b"".join(e.data for e in cefs)
+    if cstream != b"".join(e.data for e in cp) or \
+            md5s(e.recon for e in cefs) != md5s(e.recon for e in cp):
+        raise AssertionError("medium all-intra AQ: kernels and plain "
+                             "versions differ")
+    cdec = HevcDecoder()
+    if md5s(cdec.decode_all(cstream)) != md5s(e.recon for e in cefs) or \
+            cdec.fast_pictures != 4:
+        raise AssertionError("medium all-intra AQ decode: md5s differ from "
+                             "the encoder's or left the fast path")
+    print(f"phase medium all-intra AQ: 4 frames ({len(cstream)} bytes, NxN "
+          f"tier launches {ccounts['decide_nxn_b']}) kernel stream == plain, "
+          "decoded on the card through the fast path with the encoder's "
+          "md5s", flush=True)
+
+    # ---- 16e: the CLIs at their defaults (medium, fixed QP 26)
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_cli"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        (work / "in.yuv").write_bytes(b"".join(f.tobytes()
+                                               for f in fade[:10]))
+        argv = ["-i", str(work / "in.yuv"), "-wdt", str(W), "-hgt", str(H),
+                "-frms", "10", "-b", str(work / "medium.265"), "-o",
+                str(work / "rec.yuv")]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = app_encoder.main(argv)
+        check_counts(["decide_nxn_a", "decide_nxn_b", "me_bi_cost8",
+                      "inter_mc_bi"], _build.launches, "app_encoder defaults")
+        rec = np.fromfile(work / "rec.yuv", np.uint8).reshape(10, -1)
+        n_y = W * H
+        want_md5 = [",".join(hashlib.md5(p.tobytes()).hexdigest()
+                             for p in (r[:n_y], r[n_y:n_y * 5 // 4],
+                                       r[n_y * 5 // 4:])) for r in rec]
+        _build.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            rc_d = app_decoder.main(["-b", str(work / "medium.265"), "-md5",
+                                     "1"])
+        check_counts(["intra_recon", "inter_recon"], _build.launches,
+                     "app_decoder (medium)")
+        dec_lines = [ln.split()[3] for ln in out.getvalue().splitlines()
+                     if ln.startswith("POC ")]
+        if rc != 0 or rc_d != 0 or dec_lines != want_md5:
+            raise AssertionError("app_encoder defaults / app_decoder -md5 1: "
+                                 "md5 lines differ from the encoder's recon")
+        nbytes = (work / "medium.265").stat().st_size
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"phase CLI medium: app_encoder with its defaults (medium, -rc 0, "
+          f"QP 26) 10 frames ({nbytes} bytes), app_decoder -md5 1 on the "
+          "card == the encoder's recon md5s", flush=True)
+    return dict(medium_fps=medium_fps, medium_decode_fps=medium_decode_fps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2484,10 +2713,13 @@ def main() -> int:
     # ---- phase 15: cu_qp_delta and explicit weighted prediction
     bfps.update(aqwp_path(yuv, card, check_counts, rows))
 
+    # ---- phase 16: the medium preset, EncoderConfig's defaults
+    bfps.update(medium_path(yuv, card, check_counts, rows))
+
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
                 "intra_recon") + INTER_ROWS + ("inter_recon",) + FAST_ROWS \
-            + B_ROWS + AQWP_ROWS:
+            + B_ROWS + AQWP_ROWS + MEDIUM_ROWS:
         r = rows[key]
         r.pop("counters")
         r.pop("required", None)

@@ -9,13 +9,14 @@ tooling that parses them keeps working.
 A copy of ks265codec_tpu/cli/app_encoder.py on the port's HevcEncoder,
 with one addition: `-device` (default: the CUDA card; `-device cpu` runs
 the plain PyTorch versions on the CPU). Configurations the port does not
-cover yet raise NotImplementedError naming what is missing. At the
-presets ultrafast to fast the flag defaults (`-latency offline -bframes
-7 -iper 64`) encode hierarchical GOP-8 B pictures, `-latency
-livestreaming` GOP-4, `-latency zerolatency -iper 0` low-delay P; `-iper
-1` encodes all-intra at any preset; the default `-rdoq 1` runs RDOQ;
-`-aq 1..3` (adaptive quantisation, cu_qp_delta) runs in every one of
-these structures.
+cover yet raise NotImplementedError naming what is missing. The flag
+defaults (`-preset medium -latency offline -bframes 7 -iper 64 -rc 0
+-qp 26`) run: hierarchical GOP-8 B pictures with CU-tree, weighted
+prediction and the NxN decision tier on the IDR. At the presets
+ultrafast to slow `-latency livestreaming` encodes GOP-4, `-latency
+zerolatency -iper 0` low-delay P; `-iper 1` encodes all-intra at any
+preset and tune; the default `-rdoq 1` runs RDOQ; `-aq 1..3` (adaptive
+quantisation, cu_qp_delta) runs in every one of these structures.
 """
 
 from __future__ import annotations

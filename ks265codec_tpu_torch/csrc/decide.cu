@@ -1,11 +1,11 @@
 // K5 — intra mode and split decision of a batch of frames.
 //
 // Replaces ks265codec_tpu/ops/decide.py::decide_frames_jit at effort 0
-// and effort 1, without NxN (`_decide_one`, `_size_decision`,
-// `_chroma_and_cost`, `_rough_tu_cost`, `_mpm_lists`, `_source_refs`,
-// `_filter_refs`). Per CU tier (16, then 8 and 32: seeded from the 16
-// tier's winners at effort 0, a full sweep at effort 1), with one thread
-// block per CU and the frame on blockIdx.y:
+// and effort 1, with its NxN tier (`_decide_one`, `_size_decision`,
+// `_size4_luma`, `_chroma_and_cost`, `_rough_tu_cost`, `_mpm_lists`,
+// `_source_refs`, `_filter_refs`). Per CU tier (16, then 8 and 32:
+// seeded from the 16 tier's winners at effort 0, a full sweep at effort
+// 1), with one thread block per CU and the frame on blockIdx.y:
 //   pass A: source-pixel refs, [1 2 1] filtering, prediction of the
 //           candidate modes, 8x8 Hadamard SATD, the SATD-only winner best0;
 //   pass B: MPM lists from the best0 grid, the mode costs
@@ -16,6 +16,13 @@
 //           of planar, 26, 10, DC (34 where equal to DM) and DM (effort
 //           1, SATD 4x4 for 4x4 chroma); the chroma rough cost and the
 //           cost map;
+// with the NxN tier (effort 1), after the 8 tier (which then also writes
+// its luma-only cost cl8):
+//   nxn A: one thread per 4x4 luma block, the 35 modes' 4x4 SATDs and
+//          best0;
+//   nxn B: one thread per 8x8 CU, its four PUs' mode and rough cost, and
+//          NxN against cl8 (mode4, nxn8, and a new cost8 with NxN's cost
+//          where it wins);
 // then one block per frame computes the split maps and the frame cost.
 //
 // The costs are float32 and steer every decision, so they reproduce the
@@ -26,33 +33,34 @@
 //
 // Bound: operations — pass A predicts and Hadamard-transforms every
 // candidate mode (35 x 256 samples per 16x16 CU at the 16 tier) in
-// integer arithmetic; the serial float sums of pass B are small.
+// integer arithmetic; the serial float sums of pass B are small. The NxN
+// tier's pass A does the same for 35 x 16 samples per 4x4 block, one
+// thread each, with its refs and samples in registers.
 #include "common.cuh"
 
 namespace {
 
-// Source-pixel refs of block (bx, by) of size n (ops/decide._source_refs):
-// raster-causal availability, refs layout [left | corner | top]. Ends
-// synchronised.
-__device__ void source_refs(const uint8_t* p, int h, int w, int n, int bx,
-                            int by, int* ru) {
+// Source-pixel ref i of block (bx, by) of size n (ops/decide._source_refs):
+// raster-causal availability, refs layout [left | corner | top].
+__device__ __forceinline__ int source_ref(const uint8_t* p, int h, int w,
+                                          int n, int bx, int by, int i) {
   const int n2 = 2 * n;
   const bool has_l = bx > 0, has_t = by > 0;
+  if (!has_l && !has_t) return 128;
   const int ty = max(by * n - 1, 0), lx = max(bx * n - 1, 0);
   const int l0 = p[min(by * n, h - 1) * w + lx];
   const int t0 = p[ty * w + min(bx * n, w - 1)];
-  for (int i = threadIdx.x; i < 4 * n + 1; i += blockDim.x) {
-    int v;
-    if (!has_l && !has_t)
-      v = 128;
-    else if (i < n2)
-      v = has_l ? p[min(by * n + i, h - 1) * w + lx] : t0;
-    else if (i == n2)
-      v = (has_l && has_t) ? p[ty * w + lx] : (has_t ? t0 : l0);
-    else
-      v = has_t ? p[ty * w + min(bx * n + i - n2 - 1, w - 1)] : l0;
-    ru[i] = v;
-  }
+  if (i < n2) return has_l ? p[min(by * n + i, h - 1) * w + lx] : t0;
+  if (i == n2) return (has_l && has_t) ? p[ty * w + lx] : (has_t ? t0 : l0);
+  return has_t ? p[ty * w + min(bx * n + i - n2 - 1, w - 1)] : l0;
+}
+
+// All 4n + 1 refs of block (bx, by), by the block's threads. Ends
+// synchronised.
+__device__ void source_refs(const uint8_t* p, int h, int w, int n, int bx,
+                            int by, int* ru) {
+  for (int i = threadIdx.x; i < 4 * n + 1; i += blockDim.x)
+    ru[i] = source_ref(p, h, w, n, bx, by, i);
   __syncthreads();
 }
 
@@ -232,8 +240,12 @@ __device__ void chroma_satds(const int* tab, const uint8_t* p, int h, int w,
 }
 
 // kEffort is a template argument so that the effort-0 instantiation
-// carries none of the chroma search's code (registers, local arrays).
-template <int kEffort>
+// carries none of the chroma search's code (registers, local arrays);
+// kLumaCost (the 8 tier under the NxN tier) also writes the luma-only cost
+// D + lam * ((R + mode_bits) + hdr) to cl_out, taken before chroma is
+// added, as a template argument too: a run-time mode argument in this
+// kernel cost time.
+template <int kEffort, bool kLumaCost>
 __global__ void pass_b_kernel(const uint8_t* py, const uint8_t* pcb,
                               const uint8_t* pcr, const int* satd,
                               const int* best0, const int* mode16,
@@ -241,7 +253,8 @@ __global__ void pass_b_kernel(const uint8_t* py, const uint8_t* pcb,
                               const float* lam, const float* ls,
                               const float* btab, const int* tab,
                               int* mode_out, float* cost_out, int* cmode_out,
-                              int H, int W, int n, int seeded) {
+                              float* cl_out, int H, int W, int n,
+                              int seeded) {
   __shared__ PassB s;
   const int f = blockIdx.y, b = blockIdx.x, nb = gridDim.x;
   const int nbx = W / n, bx = b % nbx, by = b / nbx;
@@ -321,6 +334,11 @@ __global__ void pass_b_kernel(const uint8_t* py, const uint8_t* pcb,
     s.ccand[4] = s.best;
     s.cmode = s.best;
     s.cmode_bits = 1.f;
+    if (kLumaCost) {
+      const float hdr = n == 8 ? 7.f : (n == 16 ? 5.f : 4.f);
+      cl_out[(size_t)f * nb + b] =
+          __fmaf_rn(lam[f], (s.R + s.mode_bits) + hdr, s.D);
+    }
   }
   __syncthreads();
   if (kEffort) {
@@ -362,6 +380,127 @@ __global__ void pass_b_kernel(const uint8_t* py, const uint8_t* pcb,
     cmode_out[(size_t)f * nb + b] = cmode;
     cost_out[(size_t)f * nb + b] = __fmaf_rn(lam[f], rtot, s.D);
   }
+}
+
+// The NxN tier (ops/decide._size4_luma and nxn_plain), pass A: one thread
+// per 4x4 luma block predicts all 35 modes from its unsmoothed source refs
+// (luma DC / H / V edge filters) and writes their 4x4 Hadamard SATDs and
+// best0, the SATD-only winner (the first minimum).
+__global__ void nxn_a_kernel(const uint8_t* planes, int* satd_out,
+                             int* best0_out, const int* tab, int H, int W) {
+  const int f = blockIdx.y, nbx = W / 4, nb = nbx * (H / 4);
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= nb) return;
+  const int bx = b % nbx, by = b / nbx;
+  const uint8_t* p = planes + (size_t)f * H * W;
+  int ru[17], src[16];
+  for (int i = 0; i < 17; i++) ru[i] = source_ref(p, H, W, 4, bx, by, i);
+  for (int q = 0; q < 16; q++)
+    src[q] = p[(by * 4 + q / 4) * W + bx * 4 + q % 4];
+  const int dc = ks_dc_value(ru, 4);
+  int* out = satd_out + ((size_t)f * nb + b) * 35;
+  int best = 0, best_satd = 0;
+  for (int m = 0; m < 35; m++) {
+    int d[16];
+    for (int q = 0; q < 16; q++)
+      d[q] = src[q] - ks_pred_pixel(tab, m, 4, true, ru, ru, dc, q / 4, q % 4);
+    const int v = satd4(d);
+    out[m] = v;
+    if (m == 0 || v < best_satd) {
+      best = m;
+      best_satd = v;
+    }
+  }
+  best0_out[(size_t)f * nb + b] = best;
+}
+
+// Pass B: one thread per 8x8 CU. For each of its four 4x4 PUs in raster
+// order: the MPM lists from the best0 grid (an above neighbour in another
+// CTB row counts as DC), the least fma(ls, mode_bits, satd), the winner's
+// rough cost (4x4 DCT, deadzone quantisation, dequantisation error and
+// level bits, summed in the order of ks_block_sum) and the running total
+// acc = fma(lam, (R + mode_bits) + 1, acc + D), the order the reference
+// backend's fused loop takes. NxN wins where acc + lam * 16 < cl8; there
+// the cost becomes (cost8 - cl8) + that, elsewhere it stays cost8.
+__global__ void nxn_b_kernel(const uint8_t* planes, const int* satd,
+                             const int* best0, const int* qp,
+                             const float* lam, const float* ls,
+                             const float* btab, const int* tab,
+                             const float* cl8, const float* cost8,
+                             float* cost8_out, int* mode4_out,
+                             uint8_t* nxn8_out, int H, int W) {
+  const int f = blockIdx.y, w8 = W / 8, n8 = w8 * (H / 8);
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n8) return;
+  const int cx = c % w8, cy = c / w8;
+  const int nbx = W / 4, nb = nbx * (H / 4);
+  const uint8_t* p = planes + (size_t)f * H * W;
+  const int* b0 = best0 + (size_t)f * nb;
+  const int* T = tab + T_DCT4;
+  const float lf = lam[f], lsf = ls[f];
+  const int q = qp[f];
+  float acc = 0.f;
+  for (int k = 0; k < 4; k++) {
+    const int bx = 2 * cx + (k & 1), by = 2 * cy + (k >> 1);
+    const int b = by * nbx + bx;
+    const int a = bx > 0 ? b0[b - 1] : 1;
+    const int u = (by > 0 && (by * 4) % 64 != 0) ? b0[b - nbx] : 1;
+    int m0, m1, m2;
+    if (a == u) {
+      m0 = a >= 2 ? a : 0;
+      m1 = a >= 2 ? 2 + ((a + 29) % 32) : 1;
+      m2 = a >= 2 ? 2 + ((a - 1) % 32) : 26;
+    } else {
+      m0 = a;
+      m1 = u;
+      m2 = (a != 0 && u != 0) ? 0 : ((a != 1 && u != 1) ? 1 : 26);
+    }
+    const int* st = satd + ((size_t)f * nb + b) * 35;
+    int best = 0;
+    float bj = 0.f, mbits = 0.f;
+    for (int m = 0; m < 35; m++) {
+      const float mb = m == m0 ? 2.f : ((m == m1 || m == m2) ? 3.f : 6.f);
+      const float j = __fmaf_rn(lsf, mb, (float)st[m]);
+      if (m == 0 || j < bj) {
+        best = m;
+        bj = j;
+        mbits = mb;
+      }
+    }
+    mode4_out[(size_t)f * nb + b] = best;
+    int ru[17], res[16], tmp[16];
+    for (int i = 0; i < 17; i++) ru[i] = source_ref(p, H, W, 4, bx, by, i);
+    const int dc = ks_dc_value(ru, 4);
+    for (int i = 0; i < 16; i++)
+      res[i] = (int)p[(by * 4 + i / 4) * W + bx * 4 + i % 4] -
+               ks_pred_pixel(tab, best, 4, true, ru, ru, dc, i / 4, i % 4);
+    // forward 4x4 DCT with the HM staged shifts (1, then 8), as ks_fwd_dct
+    for (int i = 0; i < 16; i++) {
+      const int r = i / 4, cc = i % 4;
+      int s = 0;
+      for (int j = 0; j < 4; j++) s += T[r * 4 + j] * res[j * 4 + cc];
+      tmp[i] = (s + 1) >> 1;
+    }
+    float sq[16], bits[16];
+    for (int i = 0; i < 16; i++) {
+      const int r = i / 4, l = i % 4;
+      int s = 0;
+      for (int j = 0; j < 4; j++) s += tmp[r * 4 + j] * T[l * 4 + j];
+      const int av = abs((s + 128) >> 8);
+      const int lev = ks_quant_abs(tab, av, q, 2);
+      const float derr = (float)(av - ks_dequant(tab, lev, q, 2));
+      sq[i] = derr * derr;
+      bits[i] = btab[lev];
+    }
+    const float D = ks_block_sum(sq, 4) * ldexpf(1.f, -10);
+    const float rate = (ks_block_sum(bits, 4) + mbits) + 1.f;
+    acc = __fmaf_rn(lf, rate, acc + D);
+  }
+  const float nxn_cost = acc + lf * 16.f;
+  const size_t o = (size_t)f * n8 + c;
+  const bool win = nxn_cost < cl8[o];
+  nxn8_out[o] = win ? 1 : 0;
+  cost8_out[o] = win ? (cost8[o] - cl8[o]) + nxn_cost : cost8[o];
 }
 
 // Split maps and the frame cost of one frame (ops/decide._splits).
@@ -460,6 +599,7 @@ extern "C" int ks_decide_pass_a(const void* planes, const void* mode16,
   return (int)cudaGetLastError();
 }
 
+// cl_out: null, or (with effort 1) where the luma-only costs go.
 extern "C" int ks_decide_pass_b(const void* py, const void* pcb,
                                 const void* pcr, const void* satd,
                                 const void* best0, const void* mode16,
@@ -467,17 +607,51 @@ extern "C" int ks_decide_pass_b(const void* py, const void* pcb,
                                 const void* lam, const void* ls,
                                 const void* btab, const void* tab,
                                 void* mode_out, void* cost_out,
-                                void* cmode_out, int F, int H, int W, int n,
-                                int seeded, int effort, void* stream) {
+                                void* cmode_out, void* cl_out, int F, int H,
+                                int W, int n, int seeded, int effort,
+                                void* stream) {
   const int nb = (H / n) * (W / n);
   if (F <= 0 || nb <= 0) return 0;
-  auto kernel = effort ? pass_b_kernel<1> : pass_b_kernel<0>;
+  if (cl_out && !effort) return (int)cudaErrorInvalidValue;
+  auto kernel = cl_out ? pass_b_kernel<1, true>
+                       : (effort ? pass_b_kernel<1, false>
+                                 : pass_b_kernel<0, false>);
   kernel<<<dim3(nb, F), 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)py, (const uint8_t*)pcb, (const uint8_t*)pcr,
       (const int*)satd, (const int*)best0, (const int*)mode16,
       (const int*)qp, (const int*)qpc, (const float*)lam, (const float*)ls,
       (const float*)btab, (const int*)tab, (int*)mode_out, (float*)cost_out,
-      (int*)cmode_out, H, W, n, seeded);
+      (int*)cmode_out, (float*)cl_out, H, W, n, seeded);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ks_decide_nxn_a(const void* planes, void* satd, void* best0,
+                               const void* tab, int F, int H, int W,
+                               void* stream) {
+  const int nb = (H / 4) * (W / 4);
+  if (F <= 0 || nb <= 0) return 0;
+  nxn_a_kernel<<<dim3((nb + 127) / 128, F), 128, 0,
+                 (cudaStream_t)stream>>>((const uint8_t*)planes, (int*)satd,
+                                         (int*)best0, (const int*)tab, H, W);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ks_decide_nxn_b(const void* planes, const void* satd,
+                               const void* best0, const void* qp,
+                               const void* lam, const void* ls,
+                               const void* btab, const void* tab,
+                               const void* cl8, const void* cost8,
+                               void* cost8_out, void* mode4, void* nxn8,
+                               int F, int H, int W, void* stream) {
+  const int n8 = (H / 8) * (W / 8);
+  if (F <= 0 || n8 <= 0) return 0;
+  nxn_b_kernel<<<dim3((n8 + 127) / 128, F), 128, 0,
+                 (cudaStream_t)stream>>>(
+      (const uint8_t*)planes, (const int*)satd, (const int*)best0,
+      (const int*)qp, (const float*)lam, (const float*)ls,
+      (const float*)btab, (const int*)tab, (const float*)cl8,
+      (const float*)cost8, (float*)cost8_out, (int*)mode4, (uint8_t*)nxn8,
+      H, W);
   return (int)cudaGetLastError();
 }
 

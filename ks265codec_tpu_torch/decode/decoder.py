@@ -15,8 +15,9 @@ ops/wavefront.py::recon_inter_filter: K14 MC from one or both lists,
 with the slice's explicit weights, the inter TUs' residual, K11 over the
 intra CUs, K7, K9; under cu_qp_delta the parse's effective QPs). Pictures
 outside the fast paths' coverage take the scalar walk and the host
-filters (decode/filters.py), except P and B pictures on the card, which
-raise NotImplementedError. Unlike the reference, each CRA's RASL pictures
+filters (decode/filters.py), except on the card: there P and B pictures
+outside them, and any picture whose fast parse aborts on syntax outside
+them (NxN, a TU split, a PU under 8x8), raise NotImplementedError. Unlike the reference, each CRA's RASL pictures
 follow its own NoRaslOutputFlag (`_compute_poc`).
 """
 
@@ -317,9 +318,11 @@ class HevcDecoder:
                 return
             except Exception as ex:
                 # outside fast-path coverage (or corrupt): redo this slice
-                # with the interleaved scalar path from the same bits
+                # with the interleaved scalar path from the same bits,
+                # except an abort on the card (_check_fast_abort)
                 from ..utils.log import log
                 from .slice_dec import FastPathAbort
+                self._check_fast_abort(hdr, ex)
                 lvl = -1 if isinstance(ex, FastPathAbort) else 0
                 log(lvl, "decode fast path off for slice (%s: %s)"
                     % (type(ex).__name__, ex))
@@ -482,18 +485,35 @@ class HevcDecoder:
                 l1 = [tmp1[i] for i in hdr.ref_list_modification[1]]
         return [l0, l1]
 
+    def _check_fast_abort(self, hdr, ex) -> None:
+        """A slice whose fast parse aborted on syntax outside the fast
+        paths (NxN, an intra or inter TU split, a PU under 8x8) raises
+        NotImplementedError naming it on any device but the CPU: the card's
+        decoder does not redo it on the host. The CPU decoder takes the
+        scalar walk."""
+        from .slice_dec import FastPathAbort
+        if isinstance(ex, FastPathAbort) and self.device.type != "cpu":
+            raise NotImplementedError(
+                "%s in %s picture on the card (slice 8); "
+                "HevcDecoder(device='cpu') decodes it with the scalar walk"
+                % (ex, "an I" if hdr.slice_type == I_SLICE else "a P/B")
+            ) from ex
+
     def _fast_eligible(self, sps, pps, hdr) -> bool:
-        """Batched-recon fast path coverage: single-tier intra TUs with
-        the standard 64/8 CTB geometry, no PCM/scaling/TS/bypass/CIP.
-        Syntax outside coverage aborts per-CU and falls back. Without the
-        native host library the coder raises RuntimeError, as the
-        encoder's does: the fast path is the device path. A P or B slice
-        outside the inter fast path's coverage raises NotImplementedError
-        on any device but the CPU, whose decoder takes the scalar walk."""
+        """Batched-recon fast path coverage: TU == CU intra TUs (the SPS
+        may allow one intra split level, as the port's and the reference's
+        streams with the intra TU-split flag do: a TU that really splits
+        aborts in the parse) with the standard 64/8 CTB geometry, no
+        PCM/scaling/TS/bypass/CIP. Syntax outside coverage aborts per-CU
+        and falls back (`_check_fast_abort`). Without the native host
+        library the coder raises RuntimeError, as the encoder's does: the
+        fast path is the device path. A P or B slice outside the inter
+        fast path's coverage raises NotImplementedError on any device but
+        the CPU, whose decoder takes the scalar walk."""
         if getattr(self, "_wf_coder", None) is None:
             from ..ops.wavefront import WavefrontIntraCoder
             self._wf_coder = WavefrontIntraCoder()
-        ok = (sps.max_transform_hierarchy_depth_intra == 0
+        ok = (sps.max_transform_hierarchy_depth_intra <= 1
               and sps.log2_ctb == 6 and sps.log2_min_cb == 3
               and sps.log2_max_tb == 5
               and sps.bit_depth_luma == 8
@@ -514,12 +534,13 @@ class HevcDecoder:
             (pps.cu_qp_delta_enabled
              and sps.log2_ctb - pps.diff_cu_qp_delta_depth < 4,
              "quantization groups < 16 in P/B pictures"),
-            (not ok, "P/B pictures outside the fast path's geometry (TU = "
-             "CU, 64x64 CTBs, 8x8 CUs, 8 bits, no PCM, scaling lists, "
-             "transform skip, bypass or constrained intra)")) if bad]
+            (not ok, "P/B pictures outside the fast path's geometry (at "
+             "most one intra TU split level, 64x64 CTBs, 8x8 CUs, 8 bits, "
+             "no PCM, scaling lists, transform skip, bypass or constrained "
+             "intra)")) if bad]
         if gaps and self.device.type != "cpu":
             raise NotImplementedError(
-                "; ".join(gaps) + " on the card (slices 7b, 8); "
+                "; ".join(gaps) + " on the card (slice 8); "
                 "HevcDecoder(device='cpu') decodes them with the scalar walk")
         return not gaps
 

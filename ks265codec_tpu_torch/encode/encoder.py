@@ -8,9 +8,14 @@ fixed QP, the decision tiers (effort 0, and 1 for any nonzero effort, as
 in the reference), RDOQ and sign-bit hiding, and either all-intra
 (`intra_period=1`, SAO at any tier: every preset from ultrafast to
 placebo) or inter coding with one reference per list (SAO at any tier:
-ultrafast to fast): low-delay P (zerolatency or `bframes == 0`) or the
-hierarchical B GOPs (GOP-8 at `bframes=7`, offline; GOP-4 at
-`livestreaming`/`netvideo`, whose bframes is 3).
+ultrafast to slow, so the default `EncoderConfig`, medium): low-delay P
+(zerolatency or `bframes == 0`) or the hierarchical B GOPs (GOP-8 at
+`bframes=7`, offline; GOP-4 at `livestreaming`/`netvideo`, whose bframes
+is 3). Where the reference would take its host walk for intra pictures
+(`host_only`: inter streams, AQ, CU-tree) its NxN decision tier runs on
+the IDRs and all-intra AQ batches, and the SPS raises
+max_transform_hierarchy_depth_intra with `intra_tu_depth`, as the
+reference does; every CU is still coded 2Nx2N with TU == CU.
 
 With `aq_mode` or `cutree` the PPS enables cu_qp_delta (quantization
 group = CTB): the lookahead's per-CTB offsets (K12 with the 8x8
@@ -149,12 +154,21 @@ def decide_weightp(src_y, ref_lumas):
     return out if any_flag else None
 
 
+def host_only(cfg: EncoderConfig) -> bool:
+    """Where the reference's intra pictures would take its per-CU host walk
+    (inter streams, AQ, CU-tree; PCM is not ported): there it turns on the
+    NxN decision tier and the intra TU-split SPS flag. Its wavefront, which
+    the port's device scan follows, still codes every intra CU 2Nx2N with
+    TU == CU, so the tier only moves split16 and the flag only adds the
+    split_transform_flag bins."""
+    return cfg.intra_period != 1 or bool(cfg.aq_mode) or bool(cfg.cutree)
+
+
 def unsupported(cfg: EncoderConfig) -> list[str]:
     """The parts of a resolved configuration this port does not cover yet
     (empty when it covers all of them)."""
     out = []
     inter = cfg.intra_period != 1
-    host_only = inter or bool(cfg.aq_mode) or bool(cfg.cutree)
     checks = [
         (inter and cfg.refs > 1, "multiple reference pictures (refs > 1)"),
         (inter and tile_dims(cfg) != (1, 1), "tiles with inter coding"),
@@ -166,13 +180,6 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
         (cfg.rc != RC_FIXQP, "rate control other than fixed QP"),
         (cfg.pass_num != 0, "two-pass rate control"),
         (bool(cfg.pcm), "PCM"),
-        # the reference turns these on wherever its host walk would be the
-        # only path: inter streams, AQ and CU-tree (resolve_preset drops
-        # CU-tree in all-intra)
-        (host_only and bool(cfg.intra_nxn), "NxN intra partitions in "
-         "inter or AQ streams"),
-        (host_only and cfg.intra_tu_depth > 0, "the intra TU split in "
-         "inter or AQ streams"),
         (cfg.slices > 1, "multiple slices"),
         (not cfg.fpp, "the per-frame path (fpp=False)"),
         (bool(cfg.ssim), "SSIM reporting"),
@@ -283,8 +290,10 @@ class HevcEncoder:
         s.log2_max_tb = 5
         s.max_transform_hierarchy_depth_inter = \
             1 if cfg.inter_tu_depth > 0 else 0
-        # the device scan codes TU == CU
-        s.max_transform_hierarchy_depth_intra = 0
+        # the reference's rule: raised where its host walk would run,
+        # although the device scan codes TU == CU (every flag is 0)
+        s.max_transform_hierarchy_depth_intra = \
+            1 if (cfg.intra_tu_depth > 0 and host_only(cfg)) else 0
         s.scaling_list_enabled = 0
         s.amp_enabled = 1 if cfg.partitions >= 2 else 0
         s.sao_enabled = 1 if cfg.sao > 0 else 0
@@ -716,6 +725,7 @@ class HevcEncoder:
         with stage("ai.decide"):
             dec = decide_frames(*src, qps, cfg.lambda_scale,
                                 effort=int(cfg.decide_effort),
+                                nxn=bool(cfg.intra_nxn) and host_only(cfg),
                                 reference=self.reference)
             maps = {k: dec[k].cpu().numpy() for k in
                     ("split32", "split16", "mode8", "mode16", "mode32",

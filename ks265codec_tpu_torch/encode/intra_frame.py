@@ -160,12 +160,12 @@ def decide_frame(src_y, src_cb, src_cr, qp: int, lam_scale: float = 1.0,
     `decide_frame`: the batched decision pass (K5) on a one-frame batch.
     Planes are uint8 tensors on the device the pass runs on; effort 0 or
     1. Returns the 13 maps (split32, mode16, mode32, cplx, split16, mode8,
-    cm8, cm16, cm32, cost8, cost16, mode4, nxn8) as numpy arrays."""
+    cm8, cm16, cm32, cost8, cost16, mode4, nxn8) as numpy arrays; `nxn`
+    runs the NxN tier at effort 1."""
     from ..ops.decide import MAP_NAMES, decide_frames
-    if nxn:
-        raise NotImplementedError("the NxN decision tier is not ported")
     maps = decide_frames(src_y[None], src_cb[None], src_cr[None], [qp],
-                         lam_scale, effort=effort, reference=reference)
+                         lam_scale, effort=effort, nxn=nxn,
+                         reference=reference)
     return tuple(maps[k][0].cpu().numpy() for k in MAP_NAMES)
 
 

@@ -34,7 +34,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the CUDA stream; all return a cudaError_t as int.
 _SIGNATURES = {
     "ks_decide_pass_a": [_P] * 5 + [_I] * 5 + [_P],
-    "ks_decide_pass_b": [_P] * 15 + [_I] * 6 + [_P],
+    "ks_decide_pass_b": [_P] * 16 + [_I] * 6 + [_P],
+    "ks_decide_nxn_a": [_P] * 4 + [_I] * 3 + [_P],
+    "ks_decide_nxn_b": [_P] * 13 + [_I] * 3 + [_P],
     "ks_decide_split": [_P] * 7 + [_I] * 3 + [_P],
     "ks_intra_level": [_P] * 12 + [_I] * 6 + [_P],
     "ks_deblock_edges": [_P] * 6 + [_I] * 10 + [_P],

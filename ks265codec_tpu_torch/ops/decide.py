@@ -3,7 +3,7 @@ prediction, SATD + lambda*bits mode costs, the rough rate-distortion cost
 of each winner and the split maps, for a batch of frames.
 
 Counterpart of ks265codec_tpu/ops/decide.py::decide_frames_jit at both of
-its tiers without NxN:
+its efforts, with its NxN tier:
   * effort 0 (ultrafast, superfast): the full 35-mode sweep at the 16
     tier, then the 8 and 32 tiers searching only the candidates seeded
     from the 16 tier's winners, one rough-RD candidate, DM-only chroma;
@@ -12,7 +12,15 @@ its tiers without NxN:
     as the reference backend's top-k) each judged by its rough RD cost
     `D + lam * (R + mode_bits)` (the first minimum in rank order), and the
     five chroma candidates (planar, 26, 10, DC, DM; one equal to DM
-    becomes 34) by `satd_cb + satd_cr + ls * bits` (SATD 4x4 below 8x8).
+    becomes 34) by `satd_cb + satd_cr + ls * bits` (SATD 4x4 below 8x8);
+  * the NxN tier (effort 1, where the caller asks for it: the reference
+    turns it on for IDRs of inter streams and for AQ streams): per 4x4
+    luma block the 35 modes by 4x4 SATD plus MPM mode bits, the winner's
+    rough cost, and NxN at an 8x8 CU where its four blocks plus lam * 16
+    beat the CU's luma-only cost; there NxN's cost replaces that part of
+    cost8 (which moves split16) and nxn8 is set. The stream never codes
+    NxN: the device scan codes 2Nx2N (the reference's behaviour, kept
+    for byte identity).
 The 13 per-frame maps come back directly as tensors (no packed transfer
 row, no striping).
 
@@ -34,7 +42,10 @@ reproduce the reference's float32 sequence on its CPU backend exactly:
     loop takes at the map's shape (read off its optimised code at
     1280x768, 320x256, 192x320, 128x96 and the tests' maps);
   * `3.1 + 2 * log2(level)` is a table (`bits_table`) built from the
-    reference backend's float32 log (`_logtab`) and the same contraction.
+    reference backend's float32 log (`_logtab`) and the same contraction;
+  * the NxN tier's sum of four 4x4 costs is the running total
+    fma(lam, rate, acc + D), read off the reference backend's fused loop
+    (`nxn_plain`), and the replaced cost is (cost8 - cl8) + nxn_cost.
 The CUDA kernels (csrc/decide.cu) run the same sequence in one thread per
 block and are held against `decide_frames_plain`.
 """
@@ -286,13 +297,15 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None,
-          effort: int = 0):
+          effort: int = 0, luma_cost: bool = False):
     """Mode, chroma mode and rough-RD cost maps of one CU size for all
     frames. planes (F, h, w), chroma (F, h/2, w/2) int32; qp/qpc (F,)
     int32; lam/ls (F,) float32; seed (F, nby, nbx) parent modes or None
     (full 35-mode search); effort 1 judges the top 3 modes by rough RD and
     searches the 5 chroma candidates. Returns (mode, cost, chroma mode) as
-    (F, nby, nbx)."""
+    (F, nby, nbx), and with luma_cost also the luma-only cost
+    D + lam * ((R + mode_bits) + hdr), taken before chroma is added (the
+    NxN tier compares with it)."""
     F, h, w = planes.shape
     nby, nbx = h // n, w // n
     dev = planes.device
@@ -334,6 +347,8 @@ def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None,
     best = torch.gather(cand_idx, 2, ki)[..., 0]                 # (F, B)
     mode_bits, D, rbits = (torch.gather(x, 2, ki)[..., 0]
                            for x in (mb_k, Dk, rbk))
+    if luma_cost:
+        cl = fma32(lam[:, None], (rbits + mode_bits) + _HDR_BITS[n], D)
     nc = n // 2
     qpcb = qpc[:, None].expand(F, B)
     crefs = [_source_refs(cp, nc).reshape(-1, 4 * nc + 1) for cp in (cbs,
@@ -369,35 +384,91 @@ def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None,
         rtot = (rbits + mode_bits) + _HDR_PLUS_DM[n]
     cost = fma32(lam[:, None], rtot, D)
     shape = (F, nby, nbx)
-    return (best.reshape(shape).to(torch.int32), cost.reshape(shape),
-            cmode.reshape(shape).to(torch.int32))
+    out = (best.reshape(shape).to(torch.int32), cost.reshape(shape),
+           cmode.reshape(shape).to(torch.int32))
+    return out + (cl.reshape(shape),) if luma_cost else out
+
+
+def _size4_luma(planes, qp, lam, ls, btab):
+    """The NxN tier's 4x4 luma decision (reference `_size4_luma`): all 35
+    modes from unsmoothed source refs (HEVC never smooths 4x4 luma refs)
+    by 4x4 SATD, MPM lists from the SATD-only winners, the least
+    `satd + ls * mode_bits`, and the winner's rough RD terms: D and the
+    rate (R + mode_bits) + 1 (one cbf_luma bin per PU; the rough transform
+    is the 4x4 DCT, as in the reference). planes (F, h, w) int32. Returns
+    (mode4, D, rate) as (F, h/4, w/4)."""
+    F, h, w = planes.shape
+    nby, nbx = h // 4, w // 4
+    refs = _source_refs(planes, 4).reshape(-1, 17)
+    blocks = _blocks(planes, 4)                              # (F, B, 4, 4)
+    B = blocks.shape[1]
+    preds = tintra.predict_all_modes(refs, refs, 4, True).reshape(
+        F, B, 35, 4, 4)
+    costs = tcost.satd(preds, blocks[:, :, None], 4).to(torch.float32)
+    mbits = _mpm_bits(costs.argmin(-1), 4, nby, nbx)
+    ki = fma32(ls[:, None, None], mbits, costs).argmin(-1)[..., None]
+    pred = _gather(preds, ki)[:, :, 0]
+    D, rbits = _rough_tu_cost(blocks - pred, qp[:, None].expand(F, B), 4,
+                              btab)
+    rate = (rbits + torch.gather(mbits, 2, ki)[..., 0]) + 1.0
+    shape = (F, nby, nbx)
+    return (ki[..., 0].reshape(shape).to(torch.int32), D.reshape(shape),
+            rate.reshape(shape))
+
+
+def nxn_plain(planes, qp, lam, ls, cl8, cost8, btab):
+    """The NxN tier at the 8x8 CU (reference `_decide_one`'s `nxn`
+    branch): the four 4x4 PUs' cost plus lam * 16 against the 8x8 CU's
+    luma-only cost `cl8`; where NxN wins, its cost takes the luma part's
+    place: (cost8 - cl8) + nxn_cost. The reference backend computes each
+    PU's cost D + lam * rate inside the loop of the 2x2 sum and contracts
+    it with the running total: acc = fma(lam, rate, acc + D) in raster
+    order. Arguments as `nxn_cuda`'s, planes of any integer type, and
+    `btab` the rough cost's bits table (`bits_table()` on the planes'
+    device). Returns (mode4, nxn8, cost8)."""
+    mode4, D, rate = _size4_luma(planes.to(torch.int32), qp, lam, ls, btab)
+    lam3 = lam[:, None, None]
+    acc = torch.zeros_like(cost8)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            acc = fma32(lam3, rate[:, dy::2, dx::2], acc + D[:, dy::2, dx::2])
+    nxn_cost = acc + lam3 * 16.0
+    nxn8 = nxn_cost < cl8
+    return mode4, nxn8, torch.where(nxn8, (cost8 - cl8) + nxn_cost, cost8)
 
 
 def decide_frames_plain(planes: torch.Tensor, cbs: torch.Tensor,
                         crs: torch.Tensor, qp: torch.Tensor,
                         qpc: torch.Tensor, lam: torch.Tensor,
-                        ls: torch.Tensor, effort: int = 0) -> dict:
+                        ls: torch.Tensor, effort: int = 0,
+                        nxn: bool = False) -> dict:
     """Plain PyTorch version of the decision pass. planes (F, ph, pw)
     uint8, chroma (F, ph/2, pw/2) uint8, per-frame qp/qpc int32 and
     lam/ls float32 (`frame_lambdas`), effort 0 or 1. Returns the 13 maps
-    of MAP_NAMES as (F, ...) tensors (mode4 and nxn8 are zero: NxN is not
-    ported)."""
+    of MAP_NAMES as (F, ...) tensors. The NxN tier runs where `nxn` and
+    effort 1; otherwise mode4 and nxn8 are zero, as the reference returns
+    them."""
     y, cb, cr = (p.to(torch.int32) for p in (planes, cbs, crs))
     btab = torch.as_tensor(bits_table(), device=planes.device)
     args = (y, cb, cr, qp, qpc, lam, ls)
     t16 = _tier(*args, 16, btab, effort=effort)
+    nxn_maps = None
     if effort:
-        t8 = _tier(*args, 8, btab, effort=1)
+        t8 = _tier(*args, 8, btab, effort=1, luma_cost=nxn)
+        if nxn:
+            mode8, cost8, cm8, cl8 = t8
+            mode4, nxn8, cost8 = nxn_plain(y, qp, lam, ls, cl8, cost8, btab)
+            t8, nxn_maps = (mode8, cost8, cm8), (mode4, nxn8)
         t32 = _tier(*args, 32, btab, effort=1)
     else:
         mode16 = t16[0]
         seed8 = mode16.repeat_interleave(2, 1).repeat_interleave(2, 2)
         t8 = _tier(*args, 8, btab, seed8)
         t32 = _tier(*args, 32, btab, mode16[:, ::2, ::2])
-    return _splits(t8, t16, t32)
+    return _splits(t8, t16, t32, nxn_maps)
 
 
-def _splits(t8, t16, t32) -> dict:
+def _splits(t8, t16, t32, nxn_maps=None) -> dict:
     """The split maps and the frame total from the (mode, cost, chroma
     mode) maps of the three tiers."""
     (mode8, cost8, cm8), (mode16, cost16, cm16), (mode32, cost32, cm32) = \
@@ -407,45 +478,55 @@ def _splits(t8, t16, t32) -> dict:
     c16sum = _sum2x2(torch.minimum(c8sum, cost16))
     split32 = c16sum < cost32
     cplx = _frame_sum(torch.minimum(c16sum, cost32))
-    return _maps(split32, split16, cplx, t8, t16, t32)
+    return _maps(split32, split16, cplx, t8, t16, t32, nxn_maps)
 
 
-def _maps(split32, split16, cplx, t8, t16, t32) -> dict:
-    """The 13 maps by name; NxN is not ported (mode4 and nxn8 are zero)."""
+def _maps(split32, split16, cplx, t8, t16, t32, nxn_maps=None) -> dict:
+    """The 13 maps by name; without the NxN tier's (mode4 (F, ph/4, pw/4)
+    int32, nxn8 (F, ph/8, pw/8)) mode4 and nxn8 are zero."""
     (mode8, cost8, cm8), (mode16, cost16, cm16), (mode32, _, cm32) = \
         t8, t16, t32
     F, h8, w8 = mode8.shape
     dev = mode8.device
+    if nxn_maps is None:
+        nxn_maps = (torch.zeros((F, 2 * h8, 2 * w8), dtype=torch.int32,
+                                device=dev),
+                    torch.zeros((F, h8, w8), dtype=torch.bool, device=dev))
     return dict(split32=split32.bool(), mode16=mode16, mode32=mode32,
                 cplx=cplx, split16=split16.bool(), mode8=mode8,
                 cm8=cm8, cm16=cm16, cm32=cm32, cost8=cost8, cost16=cost16,
-                mode4=torch.zeros((F, 2 * h8, 2 * w8), dtype=torch.int32,
-                                  device=dev),
-                nxn8=torch.zeros((F, h8, w8), dtype=torch.bool, device=dev))
+                mode4=nxn_maps[0], nxn8=nxn_maps[1].bool())
 
 
 def decide_frames(planes: torch.Tensor, cbs: torch.Tensor,
                   crs: torch.Tensor, qps, lam_scale: float = 1.0,
-                  effort: int = 0, reference: bool = False) -> dict:
+                  effort: int = 0, nxn: bool = False,
+                  reference: bool = False) -> dict:
     """The decision pass for a batch of padded frames on their device. Any
     nonzero effort is effort 1, as in the reference (`ops/decide.py`
-    tests `if effort`). CUDA tensors launch the kernels (csrc/decide.cu);
-    CPU tensors, or reference=True, run `decide_frames_plain`."""
+    tests `if effort`); the NxN tier runs where `nxn` and effort 1. CUDA
+    tensors launch the kernels (csrc/decide.cu); CPU tensors, or
+    reference=True, run `decide_frames_plain`."""
     effort = 1 if effort else 0
+    nxn = bool(nxn) and effort == 1
     qpa, qpca, lam, ls = frame_lambdas(qps, lam_scale)
     dev = planes.device
     args = (torch.as_tensor(qpa, device=dev), torch.as_tensor(qpca, device=dev),
             torch.as_tensor(lam, device=dev), torch.as_tensor(ls, device=dev))
     if dev.type != "cuda" or reference:
-        return decide_frames_plain(planes, cbs, crs, *args, effort=effort)
-    return decide_frames_cuda(planes, cbs, crs, *args, effort=effort)
+        return decide_frames_plain(planes, cbs, crs, *args, effort=effort,
+                                   nxn=nxn)
+    return decide_frames_cuda(planes, cbs, crs, *args, effort=effort,
+                              nxn=nxn)
 
 
 def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
-                       effort: int = 0) -> dict:
+                       effort: int = 0, nxn: bool = False) -> dict:
     """The decision pass on the card: `ks_decide_pass_a` and
     `ks_decide_pass_b` per tier (16, then 8 and 32, seeded from the 16
-    tier at effort 0), then `ks_decide_split` per frame."""
+    tier at effort 0), with `nxn` (effort 1) the NxN tier's
+    `ks_decide_nxn_a` and `ks_decide_nxn_b` after the 8 tier, then
+    `ks_decide_split` per frame."""
     from ..interop import device_bits_table, device_tables
     F, H, W = planes.shape
     for t, shape in ((planes, (F, H, W)), (cbs, (F, H // 2, W // 2)),
@@ -456,6 +537,8 @@ def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
                              "(F, H, W) and (F, H/2, W/2)")
     if H % 64 or W % 64:
         raise ValueError("planes must be padded to the 64x64 CTB grid")
+    if nxn and not effort:
+        raise ValueError("the NxN tier runs at effort 1 only")
     lib = _build.kernels()
     dev = planes.device
     tab, btab = device_tables(dev), device_bits_table(dev)
@@ -463,6 +546,7 @@ def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
     lam, ls = lam.float().contiguous(), ls.float().contiguous()
     P, st = _build.ptr, _build.stream(dev)
     tiers = {}
+    cl8 = None
     for n in (16, 8, 32):
         seeded = int(n != 16 and not effort)
         nb = (H // n) * (W // n)
@@ -477,14 +561,21 @@ def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
                                    device=dev) for _ in range(2))
         cost = torch.empty((F, H // n, W // n), dtype=torch.float32,
                            device=dev)
+        if nxn and n == 8:
+            cl8 = torch.empty_like(cost)
         _build.check(lib.ks_decide_pass_b(
             P(planes), P(cbs), P(crs), P(satd), P(best0), m16, P(qp),
             P(qpc), P(lam), P(ls), P(btab), P(tab), P(mode), P(cost),
-            P(cmode), F, H, W, n, seeded, int(effort), st),
-            "ks_decide_pass_b")
+            P(cmode), P(cl8) if nxn and n == 8 else None, F, H, W, n,
+            seeded, int(effort), st), "ks_decide_pass_b")
         _build.count("decide_pass_b")
         tiers[n] = (mode, cost, cmode)
     h8, w8 = H // 8, W // 8
+    nxn_maps = None
+    if nxn:
+        mode4, nxn8, cost8 = nxn_cuda(planes, qp, lam, ls, cl8, tiers[8][1])
+        tiers[8] = (tiers[8][0], cost8, tiers[8][2])
+        nxn_maps = (mode4, nxn8)
     split16 = torch.empty((F, h8 // 2, w8 // 2), dtype=torch.uint8,
                           device=dev)
     split32 = torch.empty((F, h8 // 4, w8 // 4), dtype=torch.uint8,
@@ -496,4 +587,40 @@ def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
         P(tiers[8][1]), P(tiers[16][1]), P(tiers[32][1]), P(split16),
         P(split32), P(cplx), P(mins), F, h8, w8, st), "ks_decide_split")
     _build.count("decide_split")
-    return _maps(split32, split16, cplx, tiers[8], tiers[16], tiers[32])
+    return _maps(split32, split16, cplx, tiers[8], tiers[16], tiers[32],
+                 nxn_maps)
+
+
+def nxn_cuda(planes, qp, lam, ls, cl8, cost8):
+    """The NxN tier on the card (`nxn_plain` is its plain version):
+    `ks_decide_nxn_a` (35 modes' 4x4 SATDs and best0 per 4x4 block), then
+    `ks_decide_nxn_b` (per 8x8 CU the PUs' modes and costs against cl8).
+    planes (F, H, W) uint8 CUDA, qp int32 / lam, ls float32 (F,), cl8 and
+    cost8 (F, H/8, W/8) float32. Returns (mode4 (F, H/4, W/4) int32, nxn8
+    (F, H/8, W/8) uint8, the new cost8)."""
+    from ..interop import device_bits_table, device_tables
+    F, H, W = planes.shape
+    dev = planes.device
+    for t in (cl8, cost8):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (F, H // 8, W // 8)
+                or not t.is_contiguous() or t.device != dev):
+            raise ValueError("cl8 and cost8 must be contiguous float32 "
+                             "(F, H/8, W/8) tensors on the planes' device")
+    lib = _build.kernels()
+    tab, btab = device_tables(dev), device_bits_table(dev)
+    P, st = _build.ptr, _build.stream(dev)
+    nb4 = (H // 4) * (W // 4)
+    satd4 = torch.empty((F, nb4, 35), dtype=torch.int32, device=dev)
+    best04 = torch.empty((F, nb4), dtype=torch.int32, device=dev)
+    _build.check(lib.ks_decide_nxn_a(P(planes), P(satd4), P(best04), P(tab),
+                                     F, H, W, st), "ks_decide_nxn_a")
+    _build.count("decide_nxn_a")
+    mode4 = torch.empty((F, H // 4, W // 4), dtype=torch.int32, device=dev)
+    nxn8 = torch.empty((F, H // 8, W // 8), dtype=torch.uint8, device=dev)
+    out = torch.empty_like(cost8)
+    _build.check(lib.ks_decide_nxn_b(
+        P(planes), P(satd4), P(best04), P(qp), P(lam), P(ls), P(btab),
+        P(tab), P(cl8), P(cost8), P(out), P(mode4), P(nxn8), F, H, W, st),
+        "ks_decide_nxn_b")
+    _build.count("decide_nxn_b")
+    return mode4, nxn8, out

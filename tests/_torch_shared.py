@@ -39,8 +39,12 @@ def release() -> None:
 
 @pytest.fixture(scope="module", autouse=True)
 def release_after_module():
-    """Imported by each of the port's test modules: `release` once the
-    module's tests are done."""
+    """Imported by each of the port's test modules: `release` before the
+    module's tests start and once they are done. A worker may come to the
+    module holding gigabytes of JAX executables from the JAX package's
+    tests, which do not release (about 9.8 GB after
+    tests/test_rc_bounds.py's two-pass test, 0.6 GB once released)."""
+    release()
     yield
     release()
 

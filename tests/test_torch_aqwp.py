@@ -636,20 +636,20 @@ def test_inter_recon_wp_plain_matches_reference(decoded):
     (dict(aq_mode=1), None),
     (dict(aq_mode=3, cutree=1), None),
     (dict(weightp=True), None),
-    (dict(intra_nxn=True), "NxN"),
-    (dict(intra_tu_depth=1), "intra TU split"),
+    (dict(intra_nxn=True), None),
+    (dict(intra_tu_depth=1), None),
     (dict(refs=2), "refs > 1"),
     (dict(intra_period=1, aq_mode=1), None),
     (dict(preset="medium", intra_period=1), None),
-    (dict(preset="medium", intra_period=1, aq_mode=1), "NxN"),
-    (dict(preset="medium", intra_period=1, aq_mode=1), "intra TU split"),
-    (dict(intra_period=1, aq_mode=1, tune="screen"), "NxN"),
+    (dict(preset="medium", intra_period=1, aq_mode=1), None),
+    (dict(preset="slower"), "inter partitions"),
+    (dict(intra_period=1, aq_mode=1, tune="screen"), None),
 ])
 def test_unsupported_names(over, named):
-    """`unsupported()` no longer names AQ, CU-tree or weighted prediction,
-    and still names NxN, the intra TU split and multiple references. NxN
-    and the TU split are named in all-intra streams too once AQ is on, as
-    the reference codes them there; without AQ it leaves both off."""
+    """`unsupported()` names neither AQ, CU-tree and weighted prediction nor
+    NxN and the intra TU split (inter streams, and all-intra streams with
+    AQ, where the reference turns both on), and still names multiple
+    references and inter partitions."""
     from ks265codec_tpu_torch.encode.config import resolve_preset
     kw = dict(width=W, height=H, preset="fast", qp=27)
     kw.update(over)

@@ -8,8 +8,10 @@ the bi cost, K14 with both lists, K15 and K17 with list 1 on a 128x96
 GOP-8 encode's inputs, K18 with both lists on its decode), cu_qp_delta
 and weighted prediction's (K12's variance, K17's effective-QP chain,
 weighted K14, and the AQ / CU-tree / weighted encodes and their decodes),
-and the encoder and decoder on the kernels against themselves on the
-plain versions. Marked `cuda`: they skip where torch
+the medium preset's (K5's NxN tier at 128x96 and 256x128, the default
+EncoderConfig and medium all-intra AQ encoded and decoded), and the
+encoder and decoder on the kernels against themselves on the plain
+versions. Marked `cuda`: they skip where torch
 finds no CUDA device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -475,6 +477,23 @@ def test_decide_effort1_kernel_matches_plain(dev, qps):
         assert torch.equal(got[name], want[name]), name
 
 
+@pytest.mark.parametrize("w,h,qps", [(128, 96, (22, 37)),
+                                     (256, 128, (26, 45))])
+def test_decide_nxn_kernel_matches_plain(dev, w, h, qps):
+    """K5 at effort 1 with the NxN tier: all 13 maps equal, NxN taken
+    somewhere."""
+    enc = HevcEncoder(EncoderConfig(width=w, height=h, preset="fast",
+                                    intra_period=1, sao=0), device=dev)
+    src = _padded(_frames(2, w, h, 5 + sum(qps)), enc.sps, dev)
+    args = [torch.as_tensor(a, device=dev)
+            for a in tdec.frame_lambdas(list(qps))]
+    got = tdec.decide_frames_cuda(*src, *args, effort=1, nxn=True)
+    want = tdec.decide_frames_plain(*src, *args, effort=1, nxn=True)
+    for name in tdec.MAP_NAMES:
+        assert torch.equal(got[name], want[name]), name
+    assert bool(want["nxn8"].any())
+
+
 @pytest.mark.parametrize("tiles,sbh,rdoq", [("", True, True),
                                             ("3x2", True, False)])
 def test_intra_scan_rdoq_sbh_kernel_matches_plain(dev, tiles, sbh, rdoq):
@@ -856,3 +875,24 @@ def test_aq_wp_encode_and_decode_on_the_card(dev, over):
         w = wf.recon_inter_filter(*x, **dict(k, reference=True))
         for p, q in zip(g, w):
             assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("over", [dict(), dict(intra_period=1, aq_mode=1)],
+                         ids=["medium", "medium_intra_aq"])
+def test_medium_encode_and_decode_on_the_card(dev, over):
+    """The default EncoderConfig (medium: the NxN tier on the IDR, the
+    intra TU-split flag) and medium all-intra AQ (the tier on every
+    frame): the stream on the kernels == on the plain versions, and the
+    card's decode gives the encoder's md5s on the fast paths."""
+    frames = _fade(9 if not over else 2, 128, 96)
+    a, ra = encode_sequence(frames, EncoderConfig(width=128, height=96,
+                                                  **over), device=dev)
+    b, rb = encode_sequence(frames, EncoderConfig(width=128, height=96,
+                                                  **over), device=dev,
+                            reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in ra]
+    assert want == [frame_md5(r) for r in rb]
+    dec = HevcDecoder(device=dev)
+    assert [frame_md5(f) for f in dec.decode_all(a)] == want
+    assert dec.fast_pictures == len(frames)

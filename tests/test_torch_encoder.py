@@ -101,9 +101,9 @@ def test_batches_and_pipelining_do_not_change_bytes():
     (dict(pcm=True), "PCM"),
     (dict(slices=2, tiles=""), "multiple slices"),
     (dict(fpp=False), "per-frame path"),
-    (dict(preset="medium", intra_period=0, latency="zerolatency"),
-     "NxN intra partitions"),
-    (dict(preset="medium", aq_mode=1), "NxN intra partitions"),
+    (dict(preset="slower", intra_period=0, latency="zerolatency"),
+     "inter partitions"),
+    (dict(preset="medium", intra_period=32), "tiles with inter coding"),
 ])
 def test_unported_configurations_raise(overrides, missing):
     kw = _cfg("2x2")

@@ -290,10 +290,10 @@ def test_stream_holds_p_pictures_with_intra_cus(ref, port):
 
 @pytest.mark.parametrize("over,what", [
     (dict(partitions=1), "inter partitions"),
-    (dict(intra_tu_depth=1), "intra TU split"),
+    (dict(inter_tu_depth=1), "the inter TU split"),
     (dict(refs=2), "refs > 1"),
     (dict(tiles="2x1"), "tiles with inter coding"),
-    (dict(intra_nxn=True), "NxN intra partitions"),
+    (dict(preset="slower"), "inter partitions"),
     (dict(rc=1, bitrate_kbps=500), "rate control"),
 ])
 def test_outside_the_envelope_raises(over, what):

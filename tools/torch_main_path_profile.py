@@ -1,6 +1,6 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Eleven runs, each profiled the same way after a warm-up: the encode of the
+Thirteen runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
 QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
 the decode of the stream it writes, the low-delay P encode of
@@ -18,7 +18,9 @@ with CU-tree, aq_mode 2 and weightp, 17 frames), its decode, and the
 live encode (bench.py's inter leg with aq_mode 1 and weightp, 16
 frames), whose host stages add `enc.weightp` (the weight fit and its
 luma fetch), `enc.effective_qp` (the host walk of the decoder's QPs),
-`la.aq_offsets` and `la.cutree`.
+`la.aq_offsets` and `la.cutree`, then chip_smoke.py's medium leg
+(EncoderConfig's defaults on the 17 fade frames: the NxN tier on the
+IDR) and its decode.
 Each is run once plain for the fps, once with the stage trace on (host
 wall time per stage: for the all-intra encode upload, decide, code,
 deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
@@ -51,8 +53,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (AQWP_LIVE, AQWP_VOD, fade_frames,  # noqa: E402
-                        synth_frames)
+from chip_smoke import (AQWP_LIVE, AQWP_VOD, MEDIUM,  # noqa: E402
+                        fade_frames, synth_frames)
 from ks265codec_tpu_torch.decode.decoder import HevcDecoder  # noqa: E402
 from ks265codec_tpu_torch.encode.config import EncoderConfig  # noqa: E402
 from ks265codec_tpu_torch.encode.encoder import HevcEncoder  # noqa: E402
@@ -202,6 +204,11 @@ def main() -> int:
     encode_cfg(fade[:4], AQWP_LIVE)                     # warm-up
     profile("AQ/WP live encode", lambda: encode_cfg(fade[:16], AQWP_LIVE),
             16)
+    encode_cfg(fade[:9], MEDIUM)                        # warm-up
+    profile("medium encode", lambda: encode_cfg(fade, MEDIUM), len(fade))
+    mstream = b"".join(e.data for e in encode_cfg(fade, MEDIUM))
+    decode(mstream)                                     # warm-up
+    profile("medium decode", lambda: decode(mstream), len(fade))
     return 0
 
 
