@@ -131,7 +131,21 @@ port's package is not beside it. Phases, each printed as one line:
      the fast paths, the encoder's md5s; (d) medium all-intra AQ on 4
      frames (the tier on every frame) against the plain versions and
      decoded; (e) app_encoder with its defaults (no -preset, no -rc) on 10
-     frames and app_decoder -md5 1 on the card, the encoder's recon md5s.
+     frames and app_decoder -md5 1 on the card, the encoder's recon md5s;
+ 17. the host walk (the slower presets' P and B pictures): (a) K20's SAD
+     grid on every grid of the hierarchical route (me 2, merange 64) and
+     of the +-16 full-resolution route at bs 16 and 8, and K21's
+     quarter-pel costs and bi cost at bs 16 and 8, on the 720p inputs the
+     walk gives them for frame 1 (against frame 0; frame 2 as the second
+     list), against their plain versions (and K20 against `unfold` +
+     `cdist(p=1)`, timed as its library call); (b) the `slower` leg
+     (1280x720, QP 27, offline, 9 frames) timed with the launch counts
+     reset (K20, K21 and its bi cost must launch), luma PSNR > 30 dB, and
+     decoded by the CPU decoder (the host scalar decode: the card's fast
+     parse aborts on inter TU splits) to the encoder's md5s; (c) the
+     `slower_ldp` leg (zerolatency, refs=2, 5 frames) timed; (d) both at
+     416x240 on the kernels against the plain versions (stream and
+     recons), decoded on the CPU to the encoder's md5s.
 K2 runs inlined in K6 and K17: its launches are those of the K6 and K17
 kernels that ran its code (`intra_level_k2`, `inter_tu_class_k2`).
 The line before the last is the JSON kernel table with the fps of every
@@ -190,6 +204,16 @@ MEDIUM_FRAMES = 17
 MEDIUM = dict(width=1280, height=720, frame_rate=30)
 MEDIUM_INTRA = dict(MEDIUM, intra_period=1, aq_mode=1)
 MEDIUM_ROWS = ("decide_nxn",)
+# the presets whose P and B pictures take the host walk: slower offline
+# (the GOP-8 with b-adapt, QP 27) and slower low-delay with two L0
+# references, on bench.py's synthetic frames; their stream identity at
+# 416x240
+SLOWER_FRAMES, SLOWER_LDP_FRAMES = 9, 5
+SLOWER = dict(width=1280, height=720, preset="slower", rc=0, qp=27,
+              frame_rate=30)
+SLOWER_LDP = dict(SLOWER, latency="zerolatency", intra_period=0, refs=2)
+WALK_W, WALK_H = 416, 240
+WALK_ROWS = ("me_full_grid", "subpel_costs", "subpel_bi_cost")
 # the three launches of K17's effective-QP chain (`ks_inter_eff_qp`)
 EFF_QP = ["inter_eff_qp_ctb", "inter_eff_qp_scan", "inter_eff_qp_apply"]
 # H100 SXM figures. HBM rate: NVIDIA's data sheet. INT32 issue rate: 132
@@ -1863,6 +1887,296 @@ def medium_path(yuv, card: str, check_counts, rows: dict) -> dict:
     return dict(medium_fps=medium_fps, medium_decode_fps=medium_decode_fps)
 
 
+def _recording(module, name: str, calls: list):
+    """Wrap module.name so that each call's tensor arguments (cloned) and
+    keyword arguments are appended to `calls`; returns the undo."""
+    orig = getattr(module, name)
+
+    def spy(*a, **k):
+        calls.append(([x.clone() if torch.is_tensor(x) else x for x in a],
+                      dict(k)))
+        return orig(*a, **k)
+
+    setattr(module, name, spy)
+    return lambda: setattr(module, name, orig)
+
+
+def crop_frames(yuv, n: int, w: int, h: int) -> list:
+    """A w x h window of bench.py's synthetic frames over the moving
+    disc's path."""
+    from ks265codec_tpu_torch.utils.yuv import YUVFrame
+    y0 = min(200, yuv[0].y.shape[0] - h)
+    x0 = min(240, yuv[0].y.shape[1] - w)
+    return [YUVFrame(f.y[y0:y0 + h, x0:x0 + w].copy(),
+                     f.u[y0 // 2:(y0 + h) // 2, x0 // 2:(x0 + w) // 2].copy(),
+                     f.v[y0 // 2:(y0 + h) // 2, x0 // 2:(x0 + w) // 2].copy(),
+                     poc=i) for i, f in enumerate(yuv[:n])]
+
+
+def grid_cost(calls) -> tuple[float, float]:
+    """(bytes, int32 operations) of K20 calls: blocks, windows read and
+    the grid written once; per offset and sample a subtract, an absolute
+    value and an add."""
+    nbytes = ops = 0.0
+    for (src, win, bs, sr), _ in calls:
+        n, n_off = src.shape[0], 2 * sr + 1
+        nbytes += 4 * n * (bs * bs + win.shape[1] * win.shape[2]
+                           + n_off * n_off)
+        ops += 3.0 * n * n_off * n_off * bs * bs
+    return nbytes, ops
+
+
+def satd_pred_ops(mv, bs: int) -> float:
+    """Operations of one bs x bs prediction at quarter-pel motion mv (the
+    separable filter this phase needs, mc_ops) and its SATD against the
+    source (the rounding combine 3, the difference 1, the 8x8 Hadamard
+    about 6, a sample)."""
+    return float(mc_ops(mv, bs, True).sum()) + 10.0 * bs * bs * mv.shape[0]
+
+
+def walk_kernel_phases(yuv, dev, card: str) -> dict:
+    """K20 and K21 against their plain versions at 720p on the inputs the
+    `slower` walk gives them for frame 1 (against frame 0; frame 2 as the
+    second list of the bi cost): every grid of the hierarchical route
+    (me 2, merange 64) and of the +-16 full-resolution route at bs 16
+    and 8, the 49 quarter-pel candidates and the bi cost at bs 16 and 8.
+    Returns their table rows."""
+    from ks265codec_tpu_torch.encode.inter_frame import mv_pred_field
+    from ks265codec_tpu_torch.encode.intra_frame import pad_plane
+    from ks265codec_tpu_torch.ops import me as tme
+    from ks265codec_tpu_torch.ops import subpel as tsp
+    rows: dict = {}
+    h, w = yuv[0].y.shape
+    ph, pw = (h + 63) // 64 * 64, (w + 63) // 64 * 64
+    src, ref0, ref1 = (pad_plane(yuv[i].y, ph, pw) for i in (1, 0, 2))
+    lam = float(np.sqrt(0.85 * 2.0 ** ((27 - 12) / 3.0)))   # QP 27
+    kw = dict(device=dev)
+
+    # ---- K20: the grids of both routes, recorded from the searches
+    routes = {}
+    for route, run in (
+            ("hier", lambda bs: tme.motion_search_frame_hier(
+                src, ref0, bs, 64, lam if bs == 16 else 0.5 * lam, **kw)),
+            ("sr16", lambda bs: tme.motion_search_frame(
+                src, ref0, bs, 16, lam if bs == 16 else 0.5 * lam, **kw))):
+        calls: list = []
+        undo = _recording(tme, "full_search_grid", calls)
+        try:
+            res = {bs: run(bs) for bs in (16, 8)}
+        finally:
+            undo()
+        routes[route] = (calls, res)
+    err, tk, tp, tl = 0.0, 0.0, 0.0, 0.0
+    lib_err = 0.0
+    per_route = {}
+    for route, (calls, _) in routes.items():
+        rk = rp = rl = 0.0
+        for (s, win, bs, sr), _ in calls:
+            got = tme.full_search_grid(s, win, bs, sr)
+            want = tme.full_search_grid(s, win, bs, sr, reference=True)
+            err = max(err, max_abs_err(got, want))
+
+            def library(s=s, win=win, bs=bs):
+                patches = torch.nn.functional.unfold(
+                    win[:, None].float(), bs).transpose(1, 2)
+                return torch.cdist(patches, s.reshape(s.shape[0], 1, -1)
+                                   .float(), p=1)
+
+            lib_err = max(lib_err, max_abs_err(
+                library().reshape(got.shape).round().to(torch.int32), got))
+            rk += cuda_ms(lambda: tme.full_search_grid(s, win, bs, sr))
+            rp += cuda_ms(lambda: tme.full_search_grid(s, win, bs, sr,
+                                                       reference=True),
+                          reps=3)
+            rl += cuda_ms(library, reps=3)
+        per_route[route] = (rk, rp, rl, grid_cost(calls), len(calls))
+    hk, hp, hl, (hb, ho), hn = per_route["hier"]
+    sk, sp, sl, (sb, so), sn = per_route["sr16"]
+    if err or lib_err:
+        raise AssertionError(f"K20: kernel / library differ from the plain "
+                             f"version ({err}, {lib_err})")
+    bnd, by = table_row(rows, "me_full_grid", "me_full.cu",
+                        "ops/me.py:122", err, hk, hp, hb, ho,
+                        ["me_full_grid"])
+    rows["me_full_grid"]["library_ms"] = hl
+    sbnd, sby = bound_ms(sb, so)
+    print(f"phase K20 full-search grid ({w}x{h} frame 1 vs 0, QP 27): the "
+          f"hierarchical route's {hn} grids (bs 16 and 8: quarter "
+          f"resolution +-16, half and full resolution +-3) equal the plain "
+          f"version and the library's unfold + cdist(p=1) (max err "
+          f"{err}, {lib_err}); kernel {hk:.3f} ms (bound {bnd:.4f} ms, "
+          f"{by}), plain {hp:.3f} ms, unfold + cdist {hl:.3f} ms; the "
+          f"+-16 full-resolution route's {sn} grids: kernel {sk:.3f} ms "
+          f"(bound {sbnd:.4f} ms, {sby}), plain {sp:.3f} ms, unfold + "
+          f"cdist {sl:.3f} ms; on {card}", flush=True)
+
+    # ---- K21: quarter-pel costs at bs 16 and 8 on each list's winners,
+    # and the bi cost of both lists' refined motion
+    mv = {}
+    calls = []
+    undo = _recording(tsp, "subpel_costs", calls)
+    try:
+        for li, ref in ((0, ref0), (1, ref1)):
+            for bs in (16, 8):
+                m, _, _ = (routes["hier"][1][bs] if li == 0 else
+                           tme.motion_search_frame_hier(
+                               src, ref, bs, 64,
+                               lam if bs == 16 else 0.5 * lam, **kw))
+                mv[li, bs], _ = tsp.refine_subpel_frame(
+                    src, ref, m >> 2, bs, w, h,
+                    mv_pred_q=mv_pred_field(m),
+                    lam=lam if bs == 16 else 0.5 * lam, **kw)
+    finally:
+        undo()
+    bcalls: list = []
+    undo = _recording(tsp, "bi_cost", bcalls)
+    try:
+        for bs in (16, 8):
+            tsp.bi_pred_cost(src, ref0, ref1, mv[0, bs], mv[1, bs], bs, w, h,
+                             **kw)
+    finally:
+        undo()
+    serr = berr = 0.0
+    sk = sp = bk = bp = 0.0
+    s_ops = s_bytes = b_ops = b_bytes = 0.0
+    for (win, s, bs), _ in calls[:2]:     # list 0, bs 16 and 8
+        serr = max(serr, max_abs_err(tsp.subpel_costs(win, s, bs),
+                                     tsp.subpel_costs(win, s, bs,
+                                                      reference=True)))
+        sk += cuda_ms(lambda: tsp.subpel_costs(win, s, bs))
+        sp += cuda_ms(lambda: tsp.subpel_costs(win, s, bs, reference=True),
+                      reps=3)
+        n = s.shape[0]
+        cand = torch.as_tensor(tsp.SUBPEL_CANDS).repeat(n, 1)
+        s_ops += satd_pred_ops(cand, bs)
+        s_bytes += 4 * n * (win.shape[1] * win.shape[2] + bs * bs + 49)
+    for (w0, w1, m0, m1, s, bs), _ in bcalls:
+        berr = max(berr, max_abs_err(
+            tsp.bi_cost(w0, w1, m0, m1, s, bs),
+            tsp.bi_cost(w0, w1, m0, m1, s, bs, reference=True)))
+        bk += cuda_ms(lambda: tsp.bi_cost(w0, w1, m0, m1, s, bs))
+        bp += cuda_ms(lambda: tsp.bi_cost(w0, w1, m0, m1, s, bs,
+                                          reference=True), reps=3)
+        # both lists' filters, then one combine and SATD a sample
+        b_ops += satd_pred_ops(m0, bs) + float(mc_ops(m1, bs, True).sum())
+        n = s.shape[0]
+        b_bytes += 4 * n * (2 * w0.shape[1] * w0.shape[2] + 4 + bs * bs + 1)
+    if serr or berr:
+        raise AssertionError(f"K21: kernel differs from the plain version "
+                             f"({serr}, {berr})")
+    sbnd, sby = table_row(rows, "subpel_costs", "subpel.cu",
+                          "ops/subpel.py:85", serr, sk, sp, s_bytes, s_ops,
+                          ["subpel_costs"])
+    bbnd, bby = table_row(rows, "subpel_bi_cost", "subpel.cu",
+                          "ops/subpel.py:98", berr, bk, bp, b_bytes, b_ops,
+                          ["subpel_bi_cost"])
+    print(f"phase K21 quarter-pel ({w}x{h} frame 1 vs 0, bs 16 + 8, "
+          f"{calls[0][0][1].shape[0]} + {calls[1][0][1].shape[0]} blocks x "
+          f"49 candidates): kernel == plain, {sk:.3f} ms (bound "
+          f"{sbnd:.4f} ms, {sby}), plain {sp:.3f} ms; bi cost (frame 0 and "
+          f"2, bs 16 + 8): kernel == plain, {bk:.3f} ms (bound {bbnd:.4f} "
+          f"ms, {bby}), plain {bp:.3f} ms; on {card}", flush=True)
+    return rows
+
+
+def walk_path(yuv, card: str, check_counts, rows: dict) -> dict:
+    """Phase 17, the presets whose P and B pictures take the host walk:
+    (a) K20 and K21 against their plain versions at 720p; (b) the
+    `slower` leg (1280x720, QP 27, offline, 9 frames) timed with the
+    launch counts reset, luma PSNR > 30 dB, decoded on the CPU (the host
+    scalar decode: the card's fast parse aborts on inter TU splits) to
+    the encoder's md5s; (c) the `slower_ldp` leg (zerolatency, refs=2, 5
+    frames) timed; (d) both configurations at 416x240 on the kernels
+    against the plain versions, stream and recons, decoded on the CPU.
+    Returns the legs' fps."""
+    from ks265codec_tpu_torch.decode.decoder import HevcDecoder
+    from ks265codec_tpu_torch.encode.config import EncoderConfig
+    from ks265codec_tpu_torch.encode.encoder import HevcEncoder
+    from ks265codec_tpu_torch.ops import _build
+    dev = torch.device("cuda")
+    rows.update(walk_kernel_phases(yuv, dev, card))
+
+    def encode(cfg, frames_in, reference=False):
+        enc = HevcEncoder(EncoderConfig(**cfg), reference=reference)
+        efs = []
+        for fr in frames_in:
+            efs += enc.encode_frame(fr)
+        return efs + enc.flush()
+
+    def psnr_y(efs, frames_in):
+        mse = np.mean([np.mean((e.recon.y.astype(np.float64)
+                                - frames_in[e.display_idx].y) ** 2)
+                       for e in efs])
+        return 10 * np.log10(255.0 ** 2 / mse)
+
+    out = {}
+    for leg, cfg, n in (("slower", SLOWER, SLOWER_FRAMES),
+                        ("slower_ldp", SLOWER_LDP, SLOWER_LDP_FRAMES)):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        efs = encode(cfg, yuv[:n])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(_build.launches)
+        need = ["me_full_grid", "subpel_costs", "decide_pass_b", "sao_stats"]
+        if leg == "slower":
+            need.append("subpel_bi_cost")
+            for key in WALK_ROWS:
+                rows[key]["launches"] = check_counts(
+                    rows[key]["counters"], counts, "slower path")
+        check_counts(need, counts, f"{leg} path")
+        psnr = psnr_y(efs, yuv)
+        if psnr <= 30.0:
+            raise AssertionError(f"{leg}: luma PSNR {psnr:.2f} dB")
+        stream = b"".join(e.data for e in efs)
+        out[f"{leg}_fps"] = len(efs) / secs
+        line = (f"phase {leg} path: {len(efs)} frames {W}x{H} "
+                f"({cfg['preset']} {cfg.get('latency', 'offline')} QP 27"
+                f"{', refs 2' if leg == 'slower_ldp' else ''}) in "
+                f"{secs:.3f} s = {len(efs) / secs:.3f} fps on {card}; "
+                f"stream {len(stream)} bytes; slice types "
+                f"{''.join(e.slice_type for e in efs)}; luma PSNR "
+                f"{psnr:.2f} dB; launches {counts}")
+        if leg == "slower":
+            t0 = time.perf_counter()
+            dec = HevcDecoder(device="cpu")
+            dec_md5 = md5s(dec.decode_all(stream))
+            dsecs = time.perf_counter() - t0
+            if dec_md5 != md5s(e.recon for e in sorted(
+                    efs, key=lambda e: e.display_idx)):
+                raise AssertionError("slower: the CPU decode differs from "
+                                     "the encoder's recon")
+            line += (f"; host scalar decode (the CPU decoder, "
+                     f"{dec.fast_pictures} of {len(efs)} pictures on its "
+                     f"fast path) in {dsecs:.3f} s, md5s equal to the "
+                     "encoder's recon")
+        print(line, flush=True)
+
+    # ---- 17d: stream identity at 416x240, kernels against plain versions
+    small = crop_frames(yuv, SLOWER_FRAMES, WALK_W, WALK_H)
+    for leg, cfg, n in (("slower", SLOWER, SLOWER_FRAMES),
+                        ("slower_ldp", SLOWER_LDP, SLOWER_LDP_FRAMES)):
+        c = dict(cfg, width=WALK_W, height=WALK_H)
+        a = encode(c, small[:n])
+        b = encode(c, small[:n], reference=True)
+        sa = b"".join(e.data for e in a)
+        if sa != b"".join(e.data for e in b) or \
+                md5s(e.recon for e in a) != md5s(e.recon for e in b):
+            raise AssertionError(f"{leg} {WALK_W}x{WALK_H}: kernels and "
+                                 "plain versions differ")
+        dec = HevcDecoder(device="cpu")
+        if md5s(dec.decode_all(sa)) != md5s(
+                e.recon for e in sorted(a, key=lambda e: e.display_idx)):
+            raise AssertionError(f"{leg} {WALK_W}x{WALK_H}: the CPU decode "
+                                 "differs from the encoder's recon")
+        print(f"phase {leg} kernels vs plain stream: {n} frames "
+              f"{WALK_W}x{WALK_H} ({len(sa)} bytes, slice types "
+              f"{''.join(e.slice_type for e in a)}) identical, recon md5s "
+              "equal, CPU decode == encoder md5s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2716,10 +3030,13 @@ def main() -> int:
     # ---- phase 16: the medium preset, EncoderConfig's defaults
     bfps.update(medium_path(yuv, card, check_counts, rows))
 
+    # ---- phase 17: the host walk (slower, K20 and K21)
+    bfps.update(walk_path(yuv, card, check_counts, rows))
+
     table = []
     for key in ("decide", "intra_scan", "deblock", "sao_stats", "sao_apply",
                 "intra_recon") + INTER_ROWS + ("inter_recon",) + FAST_ROWS \
-            + B_ROWS + AQWP_ROWS + MEDIUM_ROWS:
+            + B_ROWS + AQWP_ROWS + MEDIUM_ROWS + WALK_ROWS:
         r = rows[key]
         r.pop("counters")
         r.pop("required", None)

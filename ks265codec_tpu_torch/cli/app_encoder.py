@@ -17,6 +17,10 @@ ultrafast to slow `-latency livestreaming` encodes GOP-4, `-latency
 zerolatency -iper 0` low-delay P; `-iper 1` encodes all-intra at any
 preset and tune; the default `-rdoq 1` runs RDOQ; `-aq 1..3` (adaptive
 quantisation, cu_qp_delta) runs in every one of these structures.
+`-preset slower`, `veryslow` and `placebo` at `-rc 0` run in every
+latency mode: their P and B pictures take the sequential host walk
+(partitions, AMP at placebo, the inter TU split, several L0 references
+with `-ref`), whose streams `app_decoder -device cpu` decodes.
 """
 
 from __future__ import annotations
@@ -37,6 +41,11 @@ from ..utils.yuv import YUVFrame, frame_size_bytes
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="app_encoder", description="ks265codec_tpu encoder",
+        epilog="Presets ultrafast to slow run on the device inter engine; "
+               "slower, veryslow and placebo (-rc 0) run their P and B "
+               "pictures through the host walk (partitions, the inter TU "
+               "split, -ref > 1); decode those streams with app_decoder "
+               "-device cpu.",
         add_help=True)
     p.add_argument("-i", dest="input", required=True, help="input YUV (I420)")
     p.add_argument("-b", dest="bitstream", required=True, help="output .265")

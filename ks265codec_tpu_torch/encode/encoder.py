@@ -7,11 +7,13 @@ for the configurations the port covers (`unsupported` lists the rest):
 fixed QP, the decision tiers (effort 0, and 1 for any nonzero effort, as
 in the reference), RDOQ and sign-bit hiding, and either all-intra
 (`intra_period=1`, SAO at any tier: every preset from ultrafast to
-placebo) or inter coding with one reference per list (SAO at any tier:
-ultrafast to slow, so the default `EncoderConfig`, medium): low-delay P
-(zerolatency or `bframes == 0`) or the hierarchical B GOPs (GOP-8 at
-`bframes=7`, offline; GOP-4 at `livestreaming`/`netvideo`, whose bframes
-is 3). Where the reference would take its host walk for intra pictures
+placebo) or inter coding (SAO at any tier): low-delay P (zerolatency or
+`bframes == 0`) or the hierarchical B GOPs (GOP-8 at `bframes=7`,
+offline; GOP-4 at `livestreaming`/`netvideo`, whose bframes is 3), with
+one reference per list on the device inter engine (ultrafast to slow, so
+the default `EncoderConfig`, medium) and any number of L0 references on
+the per-CU host walk (slower, veryslow, placebo: partitions, the inter
+TU split). Where the reference would take its host walk for intra pictures
 (`host_only`: inter streams, AQ, CU-tree) its NxN decision tier runs on
 the IDRs and all-intra AQ batches, and the SPS raises
 max_transform_hierarchy_depth_intra with `intra_tu_depth`, as the
@@ -42,8 +44,13 @@ flush, code the frames left as plain P pictures. Each P or B picture is
 coded by the inter engine (encode/inter_engine.py: K5, K13, K15, K17
 with K14 and the seeded K6 scan, K7, and with SAO on the device K8 ->
 K16 -> K9, whose parameters the slice writes; the host float64 decision
-of encode/sao.py is not run for inter pictures, as the reference does
-not run it there).
+of encode/sao.py is not run for these pictures, as the reference does
+not run it there), or, where the engine does not cover the
+configuration, by the per-CU host walk (encode/inter_frame.py: K5, K20,
+K21 on the device, the rest on the host), whose reconstruction the host
+deblocks, whose SAO the host decides on K22's statistics and applies,
+and whose planes the device DPB uploads on first reference use (the
+reference's branch without `device_post`).
 
 All-intra follows the reference's batched all-intra path (`_drain`'s
 all-intra branch, `_dispatch_intra_batch`, `_collect_intra_batch` and the
@@ -169,11 +176,15 @@ def unsupported(cfg: EncoderConfig) -> list[str]:
     (empty when it covers all of them)."""
     out = []
     inter = cfg.intra_period != 1
+    # the reference's host walk codes P and B pictures where the device
+    # engine does not cover the configuration (partitions, inter TU
+    # split); it handles several L0 references
+    walk = inter and (cfg.partitions != 0 or cfg.inter_tu_depth != 0)
     checks = [
-        (inter and cfg.refs > 1, "multiple reference pictures (refs > 1)"),
+        (inter and not walk and cfg.refs > 1,
+         "multiple reference pictures (refs > 1) on the device inter "
+         "engine"),
         (inter and tile_dims(cfg) != (1, 1), "tiles with inter coding"),
-        (inter and cfg.partitions != 0, "inter partitions"),
-        (inter and cfg.inter_tu_depth != 0, "the inter TU split"),
         (inter and bool(cfg.noise_reduction), "noise reduction"),
         (inter and bool(cfg.long_term_ref), "long-term references"),
         (inter and bool(cfg.open_gop), "open GOP (CRA pictures)"),
@@ -596,11 +607,12 @@ class HevcEncoder:
             hdr.collocated_ref_idx = 0
         if cfg.weightp and slice_type == P_SLICE and l0:
             # explicit weighted prediction (fades): the fit reads each L0
-            # reference's luma, fetched from the device
+            # reference's host luma, fetched first where the picture was
+            # reconstructed on the device
             with stage("enc.weightp"):
-                wt = decide_weightp(frame.y, [
-                    self.dev_dpb.get_or_upload(rp.fs)[0].cpu().numpy()
-                    for rp in l0])
+                for rp in l0:
+                    rp.fs.ensure_planes()
+                wt = decide_weightp(frame.y, [rp.fs.y for rp in l0])
             if wt is not None:
                 log(0, "weightp engaged poc %d: %s" % (
                     poc, [(c[0].weight, c[0].offset) for c in wt]))
@@ -626,18 +638,26 @@ class HevcEncoder:
         dqp = self._dqp_ctu(display_idx)
         if dqp is not None:
             enc.dqp_ctu = dqp
-        enc.compute()
+        with stage("enc.compute"):
+            enc.compute()
         if pps.cu_qp_delta_enabled:
             # the slice writer predicts each CU's QP as the decoder does
             from .map_writer import apply_effective_qp
             with stage("enc.effective_qp"):
                 apply_effective_qp(fs, enc.syn, sps, pps, hdr)
-        recon_dev = enc.device_post["recon_dev"]
-        # SAO was decided and applied on the device inside the coding
-        # pass; its parameters come back for the slice's sao() syntax
-        sao_arrays = enc.device_post["sao_arrays"]
-        sao_params = (None if sao_arrays is None
-                      else params_from_arrays(fs, *sao_arrays))
+        if enc.use_device_engine:
+            recon_dev = enc.device_post["recon_dev"]
+            # SAO was decided and applied on the device inside the coding
+            # pass; its parameters come back for the slice's sao() syntax
+            sao_arrays = enc.device_post["sao_arrays"]
+            sao_params = (None if sao_arrays is None
+                          else params_from_arrays(fs, *sao_arrays))
+        else:
+            # the host walk reconstructed into fs: the host deblocking
+            # filter, then the SAO decision on K22's statistics of the
+            # deblocked planes (applied below, after the slice is written)
+            recon_dev = None
+            sao_params = self._host_post(fs, enc, hdr, qp)
         rbsp = self._slice_rbsp(fs, enc.syn, hdr, sao_params)
         data = b""
         if cfg.pic_timing_sei:
@@ -646,7 +666,14 @@ class HevcEncoder:
                               write_sei_rbsp([(1, pic_timing_payload())]),
                               temporal_id=tid)
         data += write_nal(hdr.nal_type, rbsp, temporal_id=tid)
-        rec = self._lazy_recon(tuple(p[None] for p in recon_dev), 0, poc)
+        if recon_dev is not None:
+            rec = self._lazy_recon(tuple(p[None] for p in recon_dev), 0, poc)
+        else:
+            if sao_params is not None:
+                from ..decode.filters import sao_frame
+                with stage("enc.sao_apply_host"):
+                    sao_frame(fs, bool(hdr.sao_luma), bool(hdr.sao_chroma))
+            rec = self._wrap_recon(fs)
         if cfg.md5:
             from ..hevc.sei import picture_hash_payload, write_sei_rbsp
             data += write_nal(
@@ -660,7 +687,10 @@ class HevcEncoder:
                 self.frame_pool.release(rp.fs)
         self.dpb = [rp for rp in self.dpb if rp.poc in keep]
         self.dpb.append(RefPic(fs, poc))
-        self.dev_dpb.put(fs, recon_dev)
+        if recon_dev is not None:
+            # a host-path picture's planes are uploaded on first reference
+            # use (DeviceDPB.get_or_upload)
+            self.dev_dpb.put(fs, recon_dev)
         self.dev_dpb.trim({rp.fs.serial for rp in self.dpb})
         ftype = "P" if slice_type == P_SLICE else "B"
         log(-1, "enc poc %d %s qp %d bits %d" % (poc, ftype, qp,
@@ -676,6 +706,29 @@ class HevcEncoder:
             ef.psnr = _psnr(frame, rec)
         self._rc_update(ef, tid, getattr(enc, "frame_cplx", 1e5))
         return ef
+
+    def _host_post(self, fs, enc, hdr, qp: int):
+        """Post-processing of a picture the host walk coded (the
+        reference's branch without `device_post`): the host deblocking
+        filter on fs, then with SAO on the per-CTB statistics of the
+        deblocked planes against the sources (K22) and the host decision.
+        Returns the SAO parameters (None without SAO)."""
+        from ..decode.filters import deblock_frame
+        from ..ops.saostats import sao_frame_stats
+        from .sao import _decide_from_stats
+        pps = self.pps
+        with stage("enc.deblock_host"):
+            deblock_frame(fs, hdr.beta_offset_div2, hdr.tc_offset_div2,
+                          bool(pps.deblocking_filter_disabled),
+                          pps.cb_qp_offset, pps.cr_qp_offset)
+        if not self.sps.sao_enabled:
+            return None
+        with stage("enc.sao_stats"):
+            stats = sao_frame_stats(fs, enc.src_y, enc.src_cb, enc.src_cr,
+                                    device=self.device,
+                                    reference=self.reference)
+        with stage("enc.sao_decide_host"):
+            return _decide_from_stats(fs, stats, qp, max(self.cfg.sao, 1))
 
     def _rc_update(self, ef: EncodedFrame, tid: int, cplx: float) -> None:
         """Rate-control feedback with the lookahead cost where there is

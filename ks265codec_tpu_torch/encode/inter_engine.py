@@ -27,11 +27,10 @@ CCtuEnc::processOneCtu, SURVEY.md 3.2, restructured TPU-first):
      apply)
   6. vectorized syntax mapping on the FINAL field: true merge lists /
      AMVP (merge_vec) -> merge_idx or mvd syntax, skip conversion.
-The reference's per-CU host walk is not ported, so there is no fallback:
-a configuration the engine does not cover (AMP/partitions, inter TU split,
-tiles/slices, PCM, noise reduction) makes
-PFrameEncoder.compute raise NotImplementedError, and a failure inside the
-engine propagates.
+A configuration the engine does not cover (partitions, the inter TU
+split) takes the per-CU host walk instead (encode/inter_frame.py), as in
+the reference; a failure inside the engine propagates and never falls
+back to the walk.
 """
 
 from __future__ import annotations

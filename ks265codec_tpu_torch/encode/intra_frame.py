@@ -7,17 +7,27 @@ Copies of the numpy code of ks265codec_tpu/encode/intra_frame.py
 `fill_intra_maps`, `IntraFrameEncoder._pad`, `_qp_map8` (as `qp_map8`,
 with the per-CTU AQ / CU-tree offsets) and the part of
 `IntraFrameEncoder` that `apply_coded_planes` and the P-picture encoder
-need), and `decide_frame`, the one-frame call of the port's decision pass
-(K5) that the inter engine reads its intra maps and costs from; that
-module imports jax, so the port keeps its own.
+need), `decide_frame`, the one-frame call of the port's decision pass
+(K5) that the inter engine and the host walk read their intra maps and
+costs from (that module imports jax, so the port keeps its own), and the
+sequential per-CU coders the P/B host walk runs for its intra CUs
+(`compute_sequential`, `_code_cu` with the intra TU split,
+`_code_intra_split`, `_predict`, `_transform_quant` with `rdoq_np`,
+`_recon_residual`; the NxN and PCM branches of `_code_cu` belong to the
+intra walk, which is not ported).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ..hevc.tables import chroma_qp
+from ..decode.recon import dequant, forward_transform, intra_predict, \
+    inverse_transform, reconstruct
+from ..hevc.tables import QUANT_SCALE, chroma_qp
+from ..ops.intra import build_refs_np, use_filtered_refs
 from .map_writer import EncSyntax
+from .rdoq import rdoq_np
+from .sbh import apply_sbh_np, scan_for
 
 
 def tile_region_maps(pps, sps):
@@ -211,3 +221,221 @@ class IntraFrameEncoder:
         tile4, _, _ = tile_region_maps(self.pps, self.sps)
         fill_intra_maps(fs, syn, log2m, modes8, cmodes8, qp_map8,
                         cy, ccb, ccr, tile4=tile4)
+
+    # --------------------------------------------- the sequential host walk
+    # (the reference's per-CU coders that the P/B host walk calls for its
+    # intra CUs; intra pictures take the device path)
+
+    def compute_sequential(self):
+        """Decide (`_pre_analyze`) and code every CTB in raster order
+        (`_code_ctu`), filling the FrameState grids, the syntax maps and
+        the coefficient planes; the reconstruction lands in fs's planes."""
+        fs, sps = self.fs, self.sps
+        if not self._skip_pre:
+            self._pre_analyze()
+        wctb = sps.pic_width_in_ctbs
+        nctb = wctb * sps.pic_height_in_ctbs
+        tile4, _, _ = tile_region_maps(self.pps, sps)
+        if tile4 is None:
+            fs.slice_id[:] = 0
+        else:
+            fs.slice_id[:] = tile4
+        for addr in range(nctb):
+            rx, ry = addr % wctb, addr // wctb
+            self._code_ctu(rx << sps.log2_ctb, ry << sps.log2_ctb)
+
+    def _code_cu(self, x0, y0, log2, depth, mode, cmode=None):
+        """One 2Nx2N intra CU: luma and chroma TUs the size of the CU, or,
+        where the SPS allows an intra TU split at 16 and 32, the split
+        tree when it wins by rough RD."""
+        if cmode is None:
+            cmode = mode                                  # DM
+        fs, syn = self.fs, self.syn
+        size = 1 << log2
+        b4 = size >> 2
+        x4, y4 = x0 >> 2, y0 >> 2
+        cu_qp, cu_qp_cb, cu_qp_cr = self._cu_qp(x0, y0)
+        fs.cu_depth[y4:y4 + b4, x4:x4 + b4] = depth
+        fs.qp[y4:y4 + b4, x4:x4 + b4] = cu_qp
+        fs.cu_edge_v[y4:y4 + b4, x4] = True
+        fs.cu_edge_h[y4, x4:x4 + b4] = True
+        fs.pu_edge_v[y4:y4 + b4, x4] = True
+        fs.pu_edge_h[y4, x4:x4 + b4] = True
+        fs.tu_edge_v[y4:y4 + b4, x4] = True
+        fs.tu_edge_h[y4, x4:x4 + b4] = True
+        fs.intra_mode[y4:y4 + b4, x4:x4 + b4] = mode
+        fs.pred_mode[y4:y4 + b4, x4:x4 + b4] = 1      # MODE_INTRA
+        fs.mi_parsed[y4:y4 + b4, x4:x4 + b4] = True
+        syn.chroma_mode[y4:y4 + b4, x4:x4 + b4] = cmode
+        # --- luma TU (same size as CU)
+        pred = self._predict(0, x0, y0, size, mode)
+        src = self.src_y[y0:y0 + size, x0:x0 + size]
+        coeff_y = self._transform_quant(src - pred, log2, cu_qp,
+                                        scan_for(log2, 0, mode))
+        cbf_y = int(coeff_y.any())
+        # --- chroma TUs
+        c_log2 = log2 - 1
+        csz = size >> 1
+        cx0, cy0 = x0 >> 1, y0 >> 1
+        pred_cb = self._predict(1, cx0, cy0, csz, cmode)
+        pred_cr = self._predict(2, cx0, cy0, csz, cmode)
+        res_cb = self.src_cb[cy0:cy0 + csz, cx0:cx0 + csz] - pred_cb
+        res_cr = self.src_cr[cy0:cy0 + csz, cx0:cx0 + csz] - pred_cr
+        coeff_cb = self._transform_quant(res_cb, c_log2, cu_qp_cb,
+                                         scan_for(c_log2, 1, cmode))
+        coeff_cr = self._transform_quant(res_cr, c_log2, cu_qp_cr,
+                                         scan_for(c_log2, 2, cmode))
+        cbf_cb, cbf_cr = int(coeff_cb.any()), int(coeff_cr.any())
+        if (self.sps.max_transform_hierarchy_depth_intra > 0
+                and log2 in (4, 5)):
+            # intra TU split: code the split variant (each sub-TU predicts
+            # from the progressive recon), compare it with the unsplit
+            # candidates computed above (they read only outside
+            # neighbours), keep the winner
+            lam = 0.57 * 2.0 ** ((cu_qp - 12) / 3.0)
+
+            def _bits_of(cf):
+                a = np.abs(cf[cf != 0]).astype(np.float64)
+                return (3.1 * a.size
+                        + 2.0 * np.log2(np.maximum(a, 1.0)).sum()
+                        if a.size else 0.0)
+
+            ru = reconstruct(pred, self._recon_residual(
+                coeff_y, log2, cu_qp) if cbf_y else None)
+            rcb = reconstruct(pred_cb, self._recon_residual(
+                coeff_cb, c_log2, cu_qp_cb) if cbf_cb else None)
+            rcr = reconstruct(pred_cr, self._recon_residual(
+                coeff_cr, c_log2, cu_qp_cr) if cbf_cr else None)
+            D_u = (float(((src - ru).astype(np.int64) ** 2).sum())
+                   + float(((self.src_cb[cy0:cy0 + csz, cx0:cx0 + csz]
+                             - rcb).astype(np.int64) ** 2).sum())
+                   + float(((self.src_cr[cy0:cy0 + csz, cx0:cx0 + csz]
+                             - rcr).astype(np.int64) ** 2).sum()))
+            b_u = _bits_of(coeff_y) + _bits_of(coeff_cb) \
+                + _bits_of(coeff_cr)
+            D_s, b_s = self._code_intra_split(x0, y0, log2, mode, cmode,
+                                              cu_qp, cu_qp_cb, cu_qp_cr)
+            if D_s + lam * (b_s + 8.0) < D_u + lam * b_u:
+                syn.tu_split[y4:y4 + b4, x4:x4 + b4] = 1
+                return
+            # unsplit wins: clear the split's interior TU edges and marks
+            # (the region writes below overwrite the rest)
+            syn.tu_split[y4:y4 + b4, x4:x4 + b4] = 0
+            fs.tu_edge_v[y4:y4 + b4, x4 + 1:x4 + b4] = False
+            fs.tu_edge_h[y4 + 1:y4 + b4, x4:x4 + b4] = False
+        syn.cy[y0:y0 + size, x0:x0 + size] = coeff_y
+        syn.ccb[cy0:cy0 + csz, cx0:cx0 + csz] = coeff_cb
+        syn.ccr[cy0:cy0 + csz, cx0:cx0 + csz] = coeff_cr
+        syn.cbf_cb[y4:y4 + b4, x4:x4 + b4] = cbf_cb
+        syn.cbf_cr[y4:y4 + b4, x4:x4 + b4] = cbf_cr
+        # --- reconstruct (normative path, == decoder)
+        fs.cbf_luma[y4:y4 + b4, x4:x4 + b4] = bool(cbf_y)
+        resi_y = self._recon_residual(coeff_y, log2, cu_qp) if cbf_y \
+            else None
+        fs.y[y0:y0 + size, x0:x0 + size] = reconstruct(pred, resi_y)
+        resi_cb = self._recon_residual(coeff_cb, c_log2, cu_qp_cb) \
+            if cbf_cb else None
+        resi_cr = self._recon_residual(coeff_cr, c_log2, cu_qp_cr) \
+            if cbf_cr else None
+        fs.cb[cy0:cy0 + csz, cx0:cx0 + csz] = reconstruct(pred_cb, resi_cb)
+        fs.cr[cy0:cy0 + csz, cx0:cx0 + csz] = reconstruct(pred_cr, resi_cr)
+        fs.recon_done[y4:y4 + b4, x4:x4 + b4] = True
+
+    def _code_intra_split(self, x0, y0, log2, mode, cmode, cu_qp,
+                          cu_qp_cb, cu_qp_cr):
+        """Code this intra CU as four half-size TUs (depth-1 intra
+        transform tree): each sub-TU predicts from the progressively
+        reconstructed neighbours; chroma codes per child. Returns
+        (D_pixel, bits) of the written result."""
+        fs, syn = self.fs, self.syn
+        size = 1 << log2
+        h = size >> 1
+        clog2 = log2 - 1
+        D = 0.0
+        bits = 0.0
+        for (dx, dy) in ((0, 0), (h, 0), (0, h), (h, h)):
+            xc, yc = x0 + dx, y0 + dy
+            c4x, c4y, cb4 = xc >> 2, yc >> 2, h >> 2
+            fs.tu_edge_v[c4y:c4y + cb4, c4x] = True
+            fs.tu_edge_h[c4y, c4x:c4x + cb4] = True
+            predc = self._predict(0, xc, yc, h, mode)
+            srcc = self.src_y[yc:yc + h, xc:xc + h]
+            cf = self._transform_quant(srcc - predc, clog2, cu_qp,
+                                       scan_for(clog2, 0, mode))
+            syn.cy[yc:yc + h, xc:xc + h] = cf
+            fs.cbf_luma[c4y:c4y + cb4, c4x:c4x + cb4] = bool(cf.any())
+            rec = reconstruct(predc, self._recon_residual(
+                cf, clog2, cu_qp) if cf.any() else None)
+            fs.y[yc:yc + h, xc:xc + h] = rec
+            fs.recon_done[c4y:c4y + cb4, c4x:c4x + cb4] = True
+            D += float(((srcc - rec).astype(np.int64) ** 2).sum())
+            a = np.abs(cf[cf != 0]).astype(np.float64)
+            bits += (3.1 * a.size
+                     + 2.0 * np.log2(np.maximum(a, 1.0)).sum()
+                     if a.size else 0.0)
+            # chroma child TU
+            csz2 = h >> 1
+            ccx, ccy = xc >> 1, yc >> 1
+            for c_idx, (srcp, dstp, cmap, qpc) in enumerate((
+                    (self.src_cb, fs.cb, syn.ccb, cu_qp_cb),
+                    (self.src_cr, fs.cr, syn.ccr, cu_qp_cr)), start=1):
+                pch = self._predict(c_idx, ccx, ccy, csz2, cmode)
+                sch = srcp[ccy:ccy + csz2, ccx:ccx + csz2]
+                cfc = self._transform_quant(sch - pch, clog2 - 1, qpc,
+                                            scan_for(clog2 - 1, c_idx,
+                                                     cmode))
+                cmap[ccy:ccy + csz2, ccx:ccx + csz2] = cfc
+                (syn.cbf_cb if c_idx == 1 else syn.cbf_cr)[
+                    c4y:c4y + cb4, c4x:c4x + cb4] = int(cfc.any())
+                rch = reconstruct(pch, self._recon_residual(
+                    cfc, clog2 - 1, qpc) if cfc.any() else None)
+                dstp[ccy:ccy + csz2, ccx:ccx + csz2] = rch
+                D += float(((sch - rch).astype(np.int64) ** 2).sum())
+                ac = np.abs(cfc[cfc != 0]).astype(np.float64)
+                bits += (3.1 * ac.size
+                         + 2.0 * np.log2(np.maximum(ac, 1.0)).sum()
+                         if ac.size else 0.0)
+        return D, bits
+
+    def _predict(self, c_idx, x0, y0, size, mode):
+        """Normative prediction from reconstruction references."""
+        fs = self.fs
+        plane = (fs.y, fs.cb, fs.cr)[c_idx]
+        shift = 0 if c_idx == 0 else 1
+        region = fs.slice_id[(y0 << shift) >> 2, (x0 << shift) >> 2]
+
+        def avail(x, y):
+            lx, ly = x << shift, y << shift
+            return bool(fs.recon_done[ly >> 2, lx >> 2]
+                        and fs.slice_id[ly >> 2, lx >> 2] == region)
+
+        refs_u, refs_f = build_refs_np(
+            plane, x0, y0, size, avail, self.sps.width >> shift,
+            self.sps.height >> shift,
+            bool(self.sps.strong_intra_smoothing), 8, c_idx == 0)
+        n2 = 2 * size
+        use_f = c_idx == 0 and use_filtered_refs(mode, size)
+        refs = refs_f if use_f else refs_u
+        left = refs[:n2]
+        corner = int(refs[n2])
+        top = refs[n2 + 1:]
+        return intra_predict(mode, left, corner, top, size, 8, c_idx == 0)
+
+    def _transform_quant(self, resi, log2, qp, scan_idx=0):
+        """Host forward transform, RDOQ (`rdoq_np`) or intra deadzone
+        rounding, then sign hiding."""
+        c = forward_transform(np.asarray(resi, np.int32), log2, False)
+        if getattr(self, "rdoq", False):
+            out = rdoq_np(c, qp, log2)
+        else:
+            qbits = 29 + qp // 6 - 8 - log2
+            rnd = 171 << (qbits - 9)
+            a = np.abs(c).astype(np.int64)
+            q = np.minimum((a * QUANT_SCALE[qp % 6] + rnd) >> qbits, 32767)
+            out = np.where(c < 0, -q, q).astype(np.int32)
+        if self.pps.sign_data_hiding_enabled:
+            out = apply_sbh_np(out, scan_idx)
+        return out
+
+    def _recon_residual(self, levels, log2, qp):
+        return inverse_transform(dequant(levels, qp, log2), log2, False)

@@ -15,6 +15,8 @@ kernel agree exactly when each float32 operation rounds once:
     fused forms choose the same levels on every input probed);
   * a candidate replaces the best only where its j is strictly smaller.
 
+`rdoq_np` is the reference's numpy twin for one TU, which the per-CU
+host walk runs (encode/intra_frame.py, encode/inter_frame.py).
 `rdoq_sbh` is one quantisation step of a batch of TUs as the coding
 passes run it (RDOQ or deadzone rounding, then sign hiding); CUDA tensors
 launch `ks_rdoq_sbh` (csrc/rdoq.cu), CPU tensors run `rdoq_sbh_plain`.
@@ -138,3 +140,51 @@ def rdoq_sbh(c: torch.Tensor, qp: torch.Tensor, scan: torch.Tensor, n: int,
         return rdoq_sbh_plain(c, qp.to(c.device), scan.to(c.device), n,
                               flags)
     return rdoq_sbh_cuda(c, qp, scan, n, flags)
+
+
+# ------------------------------------------- host copy for the host walk
+
+def _rdoq_core_np(c: np.ndarray, f: np.ndarray) -> np.ndarray:
+    """The reference's `_rdoq_core` with numpy as its backend, for one TU:
+    c signed int coefficients (n, n), f = |continuous level| float32.
+    Returns signed int32 levels."""
+    f32 = np.float32
+    lf = np.floor(f).astype(np.int32)
+    best_l = np.zeros_like(lf)
+    best_j = f * f
+    for cand in (lf, lf + 1):
+        cand = np.clip(cand, 0, 32767)
+        d = f - cand.astype(f32)
+        # floor(log2(cand-2)) via integer compares (no transcendental)
+        e = np.maximum(cand - 2, 1)
+        flog = np.zeros(e.shape, np.int32)
+        for k in range(1, 15):
+            flog = flog + ((e >> k) > 0).astype(np.int32)
+        bits = (np.where(cand >= 1, f32(B1), f32(0))
+                + np.where(cand >= 2, f32(B2D), f32(0))
+                + np.where(cand >= 3, f32(BESC) + f32(2.0) * flog.astype(f32),
+                           f32(0)))
+        j = d * d + f32(W_RATE) * bits
+        take = j < best_j
+        best_l = np.where(take, cand, best_l)
+        best_j = np.where(take, j, best_j)
+    # group decimation (integer/boolean exact): per 4x4 group
+    n = best_l.shape[-1]
+    g = best_l.reshape(n // 4, 4, n // 4, 4)
+    gf = f.reshape(n // 4, 4, n // 4, 4)
+    nz = (g > 0).sum(axis=(-3, -1))
+    weak = (g == 0) | ((g == 1) & (gf < f32(DEC_F)))
+    drop = ((nz > 0) & (nz <= DEC_N)
+            & weak.all(axis=(-3, -1)))[..., :, None, :, None]
+    lev = np.where(drop, 0, g).reshape(n, n)
+    return np.where(c < 0, -lev, lev).astype(np.int32)
+
+
+def rdoq_np(c: np.ndarray, qp: int, log2: int) -> np.ndarray:
+    """RDOQ levels of one TU's signed transform coefficients (n, n) on the
+    host (the reference's `rdoq_np`, which its sequential walk runs)."""
+    qbits = 29 + qp // 6 - 8 - log2
+    t = np.abs(c).astype(np.int64) * QUANT_SCALE[qp % 6]
+    # 2^-qbits is exact in float32
+    f = t.astype(np.float32) * np.float32(np.ldexp(1.0, -qbits))
+    return _rdoq_core_np(c, f)

@@ -8,7 +8,8 @@ by +-1 on the hidden coefficient: toward zero where |c| > 1, away from zero
 where |c| == 1, so the coefficient stays nonzero.
 
 Counterpart of ks265codec_tpu/encode/sbh.py (`scan_for`, the rank table,
-`apply_sbh_jnp`) as plain PyTorch on int32 tensors. The CUDA version is
+`apply_sbh_jnp`) as plain PyTorch on int32 tensors, and `apply_sbh_np`,
+the numpy twin for one TU that the per-CU host walk runs. The CUDA version is
 `ks_sbh_group` in csrc/rdoq.cuh, one thread per 4x4 group, run inside the
 intra scan (K6), the inter coding pass (K17) and the standalone
 `ks_rdoq_sbh` launch (encode/rdoq.py::rdoq_sbh).
@@ -69,3 +70,29 @@ def apply_sbh(lev: torch.Tensor, scan: torch.Tensor, n: int) -> torch.Tensor:
     adj = g + torch.where(fix[..., None, None] & hid, delta[..., None, None],
                           0)
     return adj.transpose(2, 3).reshape(K, n, n).to(torch.int32)
+
+
+def apply_sbh_np(lev: np.ndarray, scan_idx: int) -> np.ndarray:
+    """Adjust one TU's levels (n, n) in place-compatible copy."""
+    n = lev.shape[0]
+    g = lev.reshape(n // 4, 4, n // 4, 4).transpose(0, 2, 1, 3)  # (gy,gx,4,4)
+    rank = RANK[scan_idx]
+    nz = g != 0
+    any_nz = nz.any(axis=(2, 3))
+    rk = np.where(nz, rank[None, None], 99)
+    mn = rk.min(axis=(2, 3))
+    rk2 = np.where(nz, rank[None, None], -1)
+    mx = rk2.max(axis=(2, 3))
+    cond = any_nz & (mx - mn > 3)
+    parity = (np.abs(g).sum(axis=(2, 3)) & 1).astype(np.int32)
+    # hidden coefficient = the one whose rank equals mn
+    hid_mask = nz & (rank[None, None] == mn[:, :, None, None])
+    hid_val = (g * hid_mask).sum(axis=(2, 3))       # unique per group
+    want = (hid_val < 0).astype(np.int32)
+    fix = cond & (parity != want)
+    # |c| > 1 -> toward zero, else away from zero (stays nonzero, parity flips)
+    sign = np.sign(hid_val)
+    delta = np.where(np.abs(hid_val) > 1, -sign, sign)
+    adj = g + np.where((fix[:, :, None, None] & hid_mask), 1, 0) \
+        * delta[:, :, None, None]
+    return adj.transpose(0, 2, 1, 3).reshape(n, n)

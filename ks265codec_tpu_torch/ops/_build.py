@@ -62,6 +62,9 @@ _SIGNATURES = {
     "ks_sao_decide": [_P] * 16 + [_I] * 2 + [_F] * 3 + [_P],
     "ks_inter_recon": [_P] * 11 + [_I] * 3 + [_P],
     "ks_rdoq_sbh": [_P] * 6 + [_I] * 3 + [_P],
+    "ks_me_full_grid": [_P] * 3 + [_I] * 3 + [_P],
+    "ks_subpel_costs": [_P] * 3 + [_I] * 2 + [_P],
+    "ks_subpel_bi_cost": [_P] * 6 + [_I] * 2 + [_P],
 }
 
 _lock = threading.Lock()

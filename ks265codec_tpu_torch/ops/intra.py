@@ -1,5 +1,7 @@
 """Intra prediction as plain PyTorch: all 35 modes for a batch of blocks,
-and one chosen mode per block.
+and one chosen mode per block; and `build_refs_np`, the host reference
+construction of one block that the sequential host walk predicts from
+(the reference's numpy function, copied).
 
 Counterpart of ks265codec_tpu/ops/intra.py (`predict_all_modes`, the static
 angular tables) and of `_predict_dyn_gather` in ops/wavefront.py. The
@@ -149,3 +151,69 @@ def predict_mode(refs_u: torch.Tensor, refs_f: torch.Tensor,
     m = modes.long()[:, None, None]
     pred = torch.where(m == 0, planar, torch.where(m == 1, dcp, ang))
     return pred.to(torch.int32)
+
+
+def build_refs_np(plane: np.ndarray, x0: int, y0: int, n: int,
+                  avail_fn, pic_w: int, pic_h: int,
+                  strong: bool, bd: int = 8, is_luma: bool = True):
+    """Host-side reference construction + substitution (spec 8.4.4.2.2) and
+    filtering (8.4.4.2.3) for one block. Returns (refs_u, refs_f) (4n+1,).
+
+    avail_fn(x, y) -> bool: sample availability in plane-local coords.
+    """
+    n2 = 2 * n
+    vals = np.zeros(2 * n2 + 1, np.int64)
+    ok = np.zeros(2 * n2 + 1, bool)
+
+    def avail(x, y):
+        if x < 0 or y < 0 or x >= pic_w or y >= pic_h:
+            return False
+        return bool(avail_fn(x, y))
+
+    for i in range(n2):          # bottom-left upward
+        yy = y0 + n2 - 1 - i
+        if avail(x0 - 1, yy):
+            vals[i] = plane[yy, x0 - 1]
+            ok[i] = True
+    if avail(x0 - 1, y0 - 1):
+        vals[n2] = plane[y0 - 1, x0 - 1]
+        ok[n2] = True
+    for i in range(n2):
+        xx = x0 + i
+        if avail(xx, y0 - 1):
+            vals[n2 + 1 + i] = plane[y0 - 1, xx]
+            ok[n2 + 1 + i] = True
+    if not ok.any():
+        vals[:] = 1 << (bd - 1)
+    else:
+        if not ok[0]:
+            vals[0] = vals[np.argmax(ok)]
+            ok[0] = True
+        for i in range(1, 2 * n2 + 1):
+            if not ok[i]:
+                vals[i] = vals[i - 1]
+    left = vals[:n2][::-1]       # top -> bottom
+    corner = vals[n2]
+    top = vals[n2 + 1:]
+    refs_u = np.concatenate([left, [corner], top]).astype(np.int32)
+    if not is_luma:
+        return refs_u, refs_u
+    # 3-tap [1 2 1] smoothing over bottom-left..top-right, or strong bilinear
+    if (strong and n == 32 and
+            abs(int(corner) + int(top[n2 - 1]) - 2 * int(top[n - 1])) < (1 << (bd - 5)) and
+            abs(int(corner) + int(left[n2 - 1]) - 2 * int(left[n - 1])) < (1 << (bd - 5))):
+        idx = np.arange(1, n2 + 1, dtype=np.int64)
+        ft = ((64 - idx) * corner + idx * int(top[n2 - 1]) + 32) >> 6
+        fl = ((64 - idx) * corner + idx * int(left[n2 - 1]) + 32) >> 6
+        ft[n2 - 1] = top[n2 - 1]
+        fl[n2 - 1] = left[n2 - 1]
+        refs_f = np.concatenate([fl, [corner], ft]).astype(np.int32)
+        return refs_u, refs_f
+    ext = vals                  # bottom-left..corner..top-right
+    sm = ext.copy()
+    sm[1:-1] = (ext[:-2] + 2 * ext[1:-1] + ext[2:] + 2) >> 2
+    fl = sm[:n2][::-1]
+    fc = sm[n2]
+    ft = sm[n2 + 1:]
+    refs_f = np.concatenate([fl, [fc], ft]).astype(np.int32)
+    return refs_u, refs_f

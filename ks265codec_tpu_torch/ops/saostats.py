@@ -133,11 +133,13 @@ def sao_stats_frames(rec, src, w: int, h: int, cs: int, classes: int = 4,
     return sao_stats_frames_cuda(rec, src, w, h, cs, classes, bo)
 
 
-def sao_frame_stats(fs, src_y, src_cb, src_cr, device=None):
+def sao_frame_stats(fs, src_y, src_cb, src_cr, device=None,
+                    reference: bool = False):
     """Statistics of one frame's three planes (all EO classes and the
     bands) -> per plane a tuple of numpy arrays (eo_cnt, eo_err, bo_cnt,
     bo_err), the contract encode/sao.py's host decision reads. Runs on
-    CUDA unless the caller names another device."""
+    CUDA unless the caller names another device; reference=True runs the
+    plain version there."""
     device = resolve_device(device)
     sps = fs.sps
     cs = sps.ctb_size
@@ -147,6 +149,6 @@ def sao_frame_stats(fs, src_y, src_cb, src_cr, device=None):
         r, s = (torch.from_numpy(np.asarray(a).astype(np.uint8))[None]
                 .to(device) for a in (rec, src))
         st = sao_stats_frames(r, s, sps.width >> shift, sps.height >> shift,
-                              cs >> shift)
+                              cs >> shift, reference=reference)
         out.append(tuple(a[0].cpu().numpy() for a in st))
     return out

@@ -9,9 +9,11 @@ GOP-8 encode's inputs, K18 with both lists on its decode), cu_qp_delta
 and weighted prediction's (K12's variance, K17's effective-QP chain,
 weighted K14, and the AQ / CU-tree / weighted encodes and their decodes),
 the medium preset's (K5's NxN tier at 128x96 and 256x128, the default
-EncoderConfig and medium all-intra AQ encoded and decoded), and the
-encoder and decoder on the kernels against themselves on the plain
-versions. Marked `cuda`: they skip where torch
+EncoderConfig and medium all-intra AQ encoded and decoded), the host
+walk's (K20's SAD grid and K21's quarter-pel and bi costs on seeded
+windows; the slower, slower low-delay with refs=2 and placebo streams,
+decoded on the CPU), and the encoder and decoder on the kernels against
+themselves on the plain versions. Marked `cuda`: they skip where torch
 finds no CUDA device. On the card (no jax needed):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -896,3 +898,65 @@ def test_medium_encode_and_decode_on_the_card(dev, over):
     dec = HevcDecoder(device=dev)
     assert [frame_md5(f) for f in dec.decode_all(a)] == want
     assert dec.fast_pictures == len(frames)
+
+
+@pytest.mark.parametrize("bs,sr", [(16, 16), (8, 16), (4, 16), (16, 3),
+                                   (8, 3), (4, 3)])
+def test_full_search_grid_kernel_matches_plain(dev, bs, sr):
+    """K20 on seeded random blocks and windows (odd block count, values
+    over the whole 8-bit range)."""
+    from ks265codec_tpu_torch.ops import me as tme
+    rng = np.random.RandomState(bs * 100 + sr)
+    n = 37
+    src = torch.from_numpy(rng.randint(0, 256, (n, bs, bs)).astype(np.int32))
+    win = torch.from_numpy(rng.randint(0, 256, (n, bs + 2 * sr, bs + 2 * sr))
+                           .astype(np.int32))
+    got = tme.full_search_grid(src.to(dev), win.to(dev), bs, sr)
+    want = tme.full_search_grid(src, win, bs, sr)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+def test_subpel_kernels_match_plain(dev, bs):
+    """K21: the 49 quarter-pel candidates' SATDs and the bi cost at every
+    phase pair, on seeded random windows."""
+    from ks265codec_tpu_torch.ops import subpel as tsp
+    rng = np.random.RandomState(bs)
+    n, ww = 53, bs + 2 * tsp.MARGIN
+    win0, win1 = (torch.from_numpy(rng.randint(0, 256, (n, ww, ww))
+                                   .astype(np.int32)) for _ in range(2))
+    src = torch.from_numpy(rng.randint(0, 256, (n, bs, bs)).astype(np.int32))
+    mv0, mv1 = (torch.from_numpy(rng.randint(-40, 40, (n, 2))
+                                 .astype(np.int32)) for _ in range(2))
+    got = tsp.subpel_costs(win0.to(dev), src.to(dev), bs)
+    assert torch.equal(got.cpu(), tsp.subpel_costs(win0, src, bs))
+    got = tsp.bi_cost(*(t.to(dev) for t in (win0, win1, mv0, mv1, src)), bs)
+    assert torch.equal(got.cpu(), tsp.bi_cost(win0, win1, mv0, mv1, src, bs))
+
+
+@pytest.mark.parametrize("over,n,w,h", [
+    (dict(preset="slower"), 9, 128, 96),
+    (dict(preset="slower", latency="zerolatency", refs=2), 4, 128, 96),
+    (dict(preset="placebo", latency="zerolatency"), 3, 64, 64)],
+    ids=["slower", "slower_ldp_refs2", "placebo"])
+def test_walk_encode_on_the_card(dev, over, n, w, h):
+    """The host walk's presets (K5, K20, K21 and K22 on the card): the
+    stream on the kernels == on the plain versions, the K20 and K21
+    kernels launched, and the decoder on the CPU (the card's fast parse
+    does not take inter TU splits) gives the encoder's md5s."""
+    from ks265codec_tpu_torch.ops import _build
+    frames = _slow(n, w, h, 5)
+    cfg = EncoderConfig(width=w, height=h, qp=27, **over)
+    _build.reset_launches()
+    a, ra = encode_sequence(frames, cfg, device=dev)
+    need = ["me_full_grid", "subpel_costs", "sao_stats"]
+    if "latency" not in over:
+        need.append("subpel_bi_cost")          # the GOP-8's B pictures
+    for k in need:
+        assert _build.launches.get(k, 0) > 0, k
+    b, rb = encode_sequence(frames, cfg, device=dev, reference=True)
+    assert a == b
+    want = [frame_md5(r) for r in ra]
+    assert want == [frame_md5(r) for r in rb]
+    dec = HevcDecoder(device="cpu")
+    assert [frame_md5(f) for f in dec.decode_all(a)] == want

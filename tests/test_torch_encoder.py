@@ -101,8 +101,8 @@ def test_batches_and_pipelining_do_not_change_bytes():
     (dict(pcm=True), "PCM"),
     (dict(slices=2, tiles=""), "multiple slices"),
     (dict(fpp=False), "per-frame path"),
-    (dict(preset="slower", intra_period=0, latency="zerolatency"),
-     "inter partitions"),
+    (dict(refs=2, intra_period=0, latency="zerolatency", tiles=""),
+     "refs > 1"),
     (dict(preset="medium", intra_period=32), "tiles with inter coding"),
 ])
 def test_unported_configurations_raise(overrides, missing):

@@ -289,11 +289,11 @@ def test_stream_holds_p_pictures_with_intra_cus(ref, port):
 
 
 @pytest.mark.parametrize("over,what", [
-    (dict(partitions=1), "inter partitions"),
-    (dict(inter_tu_depth=1), "the inter TU split"),
+    (dict(noise_reduction=1), "noise reduction"),
+    (dict(pcm=True), "PCM"),
     (dict(refs=2), "refs > 1"),
     (dict(tiles="2x1"), "tiles with inter coding"),
-    (dict(preset="slower"), "inter partitions"),
+    (dict(preset="slower", tiles="2x1"), "tiles with inter coding"),
     (dict(rc=1, bitrate_kbps=500), "rate control"),
 ])
 def test_outside_the_envelope_raises(over, what):

@@ -27,6 +27,7 @@ HOST_COPIES = [
     "utils/yuv.py", "utils/trace.py", "encode/sao.py", "utils/log.py",
     "decode/filters.py", "utils/pool.py", "utils/md5.py", "cli/__init__.py",
     "encode/gop.py", "encode/rc.py", "encode/merge_vec.py", "decode/inter.py",
+    "encode/bitcounter.py",
 ]
 
 

@@ -1,6 +1,6 @@
 """Where the time of the port's main path goes, on one CUDA card.
 
-Thirteen runs, each profiled the same way after a warm-up: the encode of the
+Fourteen runs, each profiled the same way after a warm-up: the encode of the
 chip_smoke.py main path (bench.py's configuration: 1280x720, ultrafast,
 QP 27, all-intra, tiles 8x6, SAO from the preset, 32 synthetic frames),
 the decode of the stream it writes, the low-delay P encode of
@@ -20,7 +20,11 @@ frames), whose host stages add `enc.weightp` (the weight fit and its
 luma fetch), `enc.effective_qp` (the host walk of the decoder's QPs),
 `la.aq_offsets` and `la.cutree`, then chip_smoke.py's medium leg
 (EncoderConfig's defaults on the 17 fade frames: the NxN tier on the
-IDR) and its decode.
+IDR) and its decode, then chip_smoke.py's `slower` leg (1280x720,
+slower, offline, QP 27, 9 synthetic frames: its P and B pictures take the
+host walk, whose stages are `enc.compute` (the walk: K5, K20, K21 and the
+per-CU host decisions), `enc.deblock_host`, `enc.sao_stats` (K22),
+`enc.sao_decide_host` and `enc.sao_apply_host`).
 Each is run once plain for the fps, once with the stage trace on (host
 wall time per stage: for the all-intra encode upload, decide, code,
 deblock, SAO statistics, the host SAO decision, SAO apply, level fetch
@@ -53,8 +57,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import (AQWP_LIVE, AQWP_VOD, MEDIUM,  # noqa: E402
-                        fade_frames, synth_frames)
+from chip_smoke import (AQWP_LIVE, AQWP_VOD, MEDIUM, SLOWER,  # noqa: E402
+                        SLOWER_FRAMES, fade_frames, synth_frames)
 from ks265codec_tpu_torch.decode.decoder import HevcDecoder  # noqa: E402
 from ks265codec_tpu_torch.encode.config import EncoderConfig  # noqa: E402
 from ks265codec_tpu_torch.encode.encoder import HevcEncoder  # noqa: E402
@@ -209,6 +213,10 @@ def main() -> int:
     mstream = b"".join(e.data for e in encode_cfg(fade, MEDIUM))
     decode(mstream)                                     # warm-up
     profile("medium decode", lambda: decode(mstream), len(fade))
+    slower = frames[:SLOWER_FRAMES]
+    encode_cfg(frames[:2], SLOWER)                      # warm-up
+    profile("slower encode", lambda: encode_cfg(slower, SLOWER),
+            len(slower))
     return 0
 
 
