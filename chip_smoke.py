@@ -7,14 +7,17 @@ port's package is not beside it. Phases, each printed as one line:
   2. build of the port's CUDA kernels (csrc/*.cu) and its seconds;
   3. each kernel against its plain PyTorch version on the card, at
      1280x720 on a batch of synthetic content as large as the main path's
-     batches (16 frames): K5 decide (all 13 maps equal), K6 intra scan
+     batches (16 frames): K5 decide (all 13 maps equal; then pass A and
+     pass B of each tier timed apart at effort 0, and at effort 1 below,
+     each beside its bound, pass A held against `pass_a_plain`), K6 intra scan
      (recon + levels equal, tiles 8x6 and none), K7 deblock (equal), K8
      SAO statistics of the deblocked batch against the sources at tier 1
      (the main path's: luma, EO classes 0/1) and tier 4 (all classes, band
      offset, chroma), K22 (K8's per-frame wrapper) on frame 0, K9 SAO
      applied with the host decision's parameters at both tiers, K11
      reconstruction from K6's levels (equal to the plain version AND to
-     K6's reconstruction, tiles 8x6 and none), with
+     K6's reconstruction, tiles 8x6 and none; then per picture at F = 1,
+     as the decoder runs it, with its launches and bound), with
      CUDA-event medians of the kernel and of the plain version and the
      least time the card could take (bound); then, on the inputs the
      low-delay P path gives them for its first P picture (frame 1
@@ -45,8 +48,10 @@ port's package is not beside it. Phases, each printed as one line:
   5. the decode path: HevcDecoder on the card decodes the timed stream
      (warm-up on its first pictures, then timed with the launch counts
      reset): every picture through the fast path, every frame's md5 equal
-     to the encoder's reconstruction, K11, K7 and K9 launched; the first 4
-     pictures decode the same with reference=True;
+     to the encoder's reconstruction, K11 launched once a picture, K7 and
+     K9 launched; the first 4 pictures decode the same with
+     reference=True (every later decode leg checks K11's launches too: one
+     for each I picture, at most one for each P or B picture);
   6. the SAO-off encode (4 frames): K5, K6 and K7 launched, kernel
      stream == plain stream;
   7. the low-delay P path (BASELINE.json config 2: ultrafast,
@@ -624,6 +629,7 @@ def fast_kernel_phases(src, dargs, batch_tiled, yuv, dev) -> dict:
           f"{float(got['cplx'].sum()):.1f} over {F} frames), kernel "
           f"{ms:.3f} ms, plain {plain:.3f} ms, bound {bnd:.4f} ms ({by})",
           flush=True)
+    rows["decide_effort1"]["tiers"] = k5_tier_phase(src, dargs, 1)
     rows["decide_nxn"] = nxn_phase(src, dargs, got)
 
     # K6 with RDOQ and sign hiding on those decisions, tiles 8x6
@@ -1303,6 +1309,7 @@ def bframe_path(yuv, card: str, check_counts, rows: dict) -> dict:
         raise AssertionError(f"B decode: {bdec.fast_pictures} of "
                              f"{len(bdecoded)} pictures took the fast "
                              "paths, or the output is out of display order")
+    check_k11_launches(bdcounts, BFRAMES, 1, "B decode")
     if md5s(bdecoded) != benc_md5:
         bad = [i for i, (x, y) in enumerate(zip(md5s(bdecoded), benc_md5))
                if x != y]
@@ -1459,6 +1466,7 @@ def aqwp_path(yuv, card: str, check_counts, rows: dict) -> dict:
         if dec.fast_pictures != n or len(out) != n:
             raise AssertionError(f"{what} decode: {dec.fast_pictures} of "
                                  f"{len(out)} pictures took the fast paths")
+        check_k11_launches(counts, n, 1, f"{what} decode")
         if md5s(out) != enc_md5:
             raise AssertionError(f"{what} decode: frames differ from the "
                                  "encoder's reconstruction")
@@ -1815,6 +1823,7 @@ def medium_path(yuv, card: str, check_counts, rows: dict) -> dict:
     if dec.fast_pictures != MEDIUM_FRAMES or len(out) != MEDIUM_FRAMES:
         raise AssertionError(f"medium decode: {dec.fast_pictures} of "
                              f"{len(out)} pictures took the fast paths")
+    check_k11_launches(dcounts, MEDIUM_FRAMES, 1, "medium decode")
     if md5s(out) != md5s(e.recon for e in mrec):
         raise AssertionError("medium decode: frames differ from the "
                              "encoder's reconstruction")
@@ -2177,6 +2186,127 @@ def walk_path(yuv, card: str, check_counts, rows: dict) -> dict:
     return out
 
 
+def check_k11_launches(counts: dict, pictures: int, intra_pictures: int,
+                       what: str) -> None:
+    """K11 is one launch per decoded picture that holds intra CUs: exactly
+    one for each I picture, at most one for each P or B picture."""
+    k = counts.get("intra_recon", 0)
+    if not intra_pictures <= k <= pictures:
+        raise AssertionError(f"{what}: {k} K11 launches for {pictures} "
+                             f"pictures ({intra_pictures} I), not one a "
+                             "picture")
+
+
+def k5_tier_phase(src, dargs, effort: int) -> list:
+    """K5's pass A and pass B of each tier (16, then 8 and 32, seeded from
+    the 16 tier at effort 0) timed apart with CUDA events on the 16-frame
+    720p batch at `effort`, each beside its bound. Returns one dict per
+    tier and pass."""
+    from ks265codec_tpu_torch.ops import decide as dcd
+    F, ph, pw = src[0].shape
+    qp, qpc, lam, ls = dargs
+    out, mode16 = [], None
+    for n in (16, 8, 32):
+        seed = mode16 if n != 16 and not effort else None
+        nb = F * (ph // n) * (pw // n)
+        nc, cands = n // 2, (7 if seed is not None else 35)
+        satd, best0 = dcd.decide_pass_a_cuda(src[0], n, seed)
+        for what, a, b in zip(("satd", "best0"), (satd, best0),
+                              dcd.pass_a_plain(src[0], n, seed)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"K5 pass A (tier {n}, effort "
+                                     f"{effort}): {what} differs from "
+                                     "pass_a_plain")
+        ta = cuda_ms(lambda: dcd.decide_pass_a_cuda(src[0], n, seed))
+        res = dcd.decide_pass_b_cuda(*src, satd, best0, seed, *dargs, n,
+                                     effort)
+        tb = cuda_ms(lambda: dcd.decide_pass_b_cuda(*src, satd, best0, seed,
+                                                    *dargs, n, effort))
+        if n == 16:
+            mode16 = res[0]
+        # pass A: every candidate's prediction + 8x8 Hadamard (about 10
+        # integer ops per sample and mode); bytes: the luma planes (and
+        # the seed map) in, satd and best0 out. Pass B: the K candidates'
+        # and the chroma blocks' forward transforms (2 stages of n
+        # multiply-adds per sample, matrix form), at effort 1 the 5 chroma
+        # candidates' prediction + Hadamard on both planes; bytes: the
+        # planes, satd and best0 in, the three maps out
+        a_ops = nb * cands * n * n * 10.0
+        a_bytes = F * ph * pw + (satd.numel() + best0.numel()) * 4 + (
+            seed.numel() * 4 if seed is not None else 0)
+        k = 3 if effort else 1
+        b_ops = nb * (k * n * n * 2 * n + 2 * nc * nc * 2 * nc
+                      + (2 * 5 * nc * nc * 10 if effort else 0))
+        b_bytes = F * ph * pw * 1.5 + (satd.numel() + best0.numel()) * 4 \
+            + 3 * 4 * nb
+        for what, ms, (bnd, by) in (("A", ta, bound_ms(a_bytes, a_ops)),
+                                    ("B", tb, bound_ms(b_bytes, b_ops))):
+            out.append(dict(tier=n, effort=effort, pass_=what, ms=ms,
+                            bound_ms=bnd, bound_by=by))
+        ba, bb = out[-2], out[-1]
+        print(f"phase K5 tier {n} (effort {effort}, {F} frames): pass A "
+              f"equal to pass_a_plain, {ta:.3f} ms (bound "
+              f"{ba['bound_ms']:.4f}, {ba['bound_by']}), pass B {tb:.3f} ms "
+              f"(bound {bb['bound_ms']:.4f}, {bb['bound_by']})", flush=True)
+    return out
+
+
+def k11_picture_phase(batch, sps, pps, levels, recon, tab) -> dict:
+    """K11 per picture at F = 1, as the decoder runs it: each frame of the
+    16-frame batch (`batch`, K6's decisions and `levels`) reconstructed
+    alone through `recon_intra_frames_cuda`, equal to K6's reconstruction
+    `recon` of that frame (and to the plain version on frame 0); the mean
+    time and launches per picture and the per-picture bound."""
+    from ks265codec_tpu_torch.ops import _build
+    from ks265codec_tpu_torch.ops import wavefront as wf
+    dev = levels[0].device
+    strong = bool(sps.strong_intra_smoothing)
+    coder = wf.WavefrontIntraCoder()
+    pics = [(coder.pack([item], pps.cb_qp_offset, pps.cr_qp_offset,
+                        sps).to(dev),
+             [lv[f:f + 1].contiguous() for lv in levels])
+            for f, item in enumerate(batch)]
+    before = _build.launches.get("intra_recon", 0)
+    outs = [wf.recon_intra_frames_cuda(*levs, sched, strong, tab)
+            for sched, levs in pics]
+    launches = (_build.launches["intra_recon"] - before) / len(pics)
+    plain0 = wf.recon_intra_frames_plain(*pics[0][1], pics[0][0], strong)
+    torch.cuda.synchronize()
+    for f, got in enumerate(outs):
+        for c, x, y in zip("YUV", got, recon):
+            if not torch.equal(x[0], y[f]):
+                raise AssertionError(f"K11 at F = 1: frame {f} plane {c} "
+                                     "differs from K6's reconstruction")
+    for c, x, y in zip("YUV", outs[0], plain0):
+        if not torch.equal(x, y):
+            raise AssertionError(f"K11 at F = 1: plane {c} differs from its "
+                                 "plain version")
+
+    def run():
+        for sched, levs in pics:
+            wf.recon_intra_frames_cuda(*levs, sched, strong, tab)
+
+    ms = cuda_ms(run) / len(pics)
+    # per picture, as the batch row counts it: the 2 inverse-transform
+    # stages of n multiply-adds per sample (matrix form), luma and both
+    # chroma blocks; bytes: int16 levels in, recon out
+    _, ph, pw = levels[0].shape
+    bnds = []
+    for sched, _ in pics:
+        recs = sched.recs.cpu().numpy()
+        sizes = recs[recs[:, wf.VALID] == 1, wf.SIZE].astype(np.float64)
+        ops = float(np.sum(sizes ** 2 * 2 * sizes
+                           + 2 * (sizes / 2) ** 2 * 2 * (sizes / 2)))
+        bnds.append(bound_ms(ph * pw * 1.5 * (2 + 1), ops))
+    bnd = float(np.mean([b for b, _ in bnds]))
+    by = bnds[0][1]
+    print(f"phase K11 per picture (F = 1, {len(pics)} pictures, tiles "
+          f"8x6): equal to K6's recon, {ms:.4f} ms and {launches:.2f} "
+          f"launches a picture, bound {bnd:.5f} ms ({by})", flush=True)
+    return dict(picture_ms=ms, picture_launches=launches,
+                picture_bound_ms=bnd, picture_bound_by=by)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2270,6 +2400,7 @@ def main() -> int:
                                     "decide_split"])
     print(f"phase K5 decide: 13 maps equal, kernel {ms:.3f} ms, plain "
           f"{plain:.3f} ms, bound {bnd:.4f} ms ({by})", flush=True)
+    rows["decide"]["tiers"] = k5_tier_phase(src, dargs, 0)
 
     maps = {k: v.cpu().numpy() for k, v in got.items()}
     scans = {}
@@ -2511,8 +2642,11 @@ def main() -> int:
                 bound_ms=bnd, bound_by=by, library_ms=None,
                 counters=["intra_recon"])
         print(f"phase K11 intra recon ({tag}): equal to its plain version "
-              f"and to K6's recon, {len(sched.levels)} levels, kernel "
-              f"{ms:.3f} ms, plain {plain:.3f} ms", flush=True)
+              f"and to K6's recon, {len(sched.levels)} levels in one launch, "
+              f"kernel {ms:.3f} ms, plain {plain:.3f} ms", flush=True)
+    sched, gk, batch = scans["tiles 8x6"]
+    rows["intra_recon"].update(k11_picture_phase(batch, sps, pps, gk[1],
+                                                 gk[0], tab))
 
     # K12, K13, K15, K17 and K14 on the low-delay P path's first P picture
     # (frame 1 against the IDR of frame 0), on the inputs the encoder gives
@@ -2632,6 +2766,7 @@ def main() -> int:
                              "encoder's reconstruction")
     check_counts(["intra_recon", "deblock_edges", "sao_apply"], dcounts,
                  "decode path")
+    check_k11_launches(dcounts, FRAMES, FRAMES, "decode")
     rows["intra_recon"]["launches"] = dcounts["intra_recon"]
     ref4 = md5s(HevcDecoder(reference=True).decode_all(b"".join(aus[:4])))
     if ref4 != dec_md5[:4]:
@@ -2747,6 +2882,7 @@ def main() -> int:
     if idec.fast_pictures != INTER_FRAMES or len(idecoded) != INTER_FRAMES:
         raise AssertionError(f"P decode: {idec.fast_pictures} of "
                              f"{len(idecoded)} pictures took the fast path")
+    check_k11_launches(idcounts, INTER_FRAMES, 1, "P decode")
     idec_md5 = md5s(idecoded)
     if idec_md5 != ienc_md5:
         bad = [i for i, (x, y) in enumerate(zip(idec_md5, ienc_md5))
@@ -2931,6 +3067,7 @@ def main() -> int:
     if fdec.fast_pictures != INTER_FRAMES or len(fdecoded) != INTER_FRAMES:
         raise AssertionError(f"fast P decode: {fdec.fast_pictures} of "
                              f"{len(fdecoded)} pictures took the fast path")
+    check_k11_launches(fdcounts, INTER_FRAMES, 1, "fast P decode")
     if md5s(fdecoded) != fenc_md5:
         raise AssertionError("fast P decode: frames differ from the "
                              "encoder's reconstruction")
@@ -2969,10 +3106,12 @@ def main() -> int:
         raise AssertionError("16-frame fast all-intra stream: kernels and "
                              "plain versions differ")
     fidec = HevcDecoder()
+    _build.reset_launches()
     if md5s(fidec.decode_all(fistream)) != md5s(e.recon for e in iefs_f) \
             or fidec.fast_pictures != 16:
         raise AssertionError("fast all-intra decode: frames differ from the "
                              "encoder's reconstruction or left the fast path")
+    check_k11_launches(_build.launches, 16, 16, "fast all-intra decode")
     fast_intra_fps = 16 / fisecs
     print(f"phase fast all-intra: 16 frames {W}x{H} (fast QP 27 tiles 8x6, "
           f"SAO tier 3) in {fisecs:.3f} s = {fast_intra_fps:.3f} fps on "

@@ -15,10 +15,13 @@ ops/wavefront.py::recon_inter_filter: K14 MC from one or both lists,
 with the slice's explicit weights, the inter TUs' residual, K11 over the
 intra CUs, K7, K9; under cu_qp_delta the parse's effective QPs). Pictures
 outside the fast paths' coverage take the scalar walk and the host
-filters (decode/filters.py), except on the card: there P and B pictures
-outside them, and any picture whose fast parse aborts on syntax outside
-them (NxN, a TU split, a PU under 8x8), raise NotImplementedError. Unlike the reference, each CRA's RASL pictures
-follow its own NoRaslOutputFlag (`_compute_poc`).
+filters (decode/filters.py), except on the card: there no picture is
+decoded on the host. An I, P or B picture outside the fast paths'
+geometry, any picture whose fast parse aborts on syntax outside them
+(NxN, a TU split, a PU under 8x8) and every slice after a picture's first
+raise NotImplementedError naming what is missing. Unlike the reference,
+each CRA's RASL pictures follow its own NoRaslOutputFlag
+(`_compute_poc`).
 """
 
 from __future__ import annotations
@@ -244,6 +247,7 @@ class HevcDecoder:
             if prev is None or self.cur is None:
                 return      # orphan dependent segment: skip
             ihdr, ref_lists, ctx_end, qp_end, sidx = prev
+            self._no_host_walk("a dependent slice segment")
             # dependent segments share the slice region: their prediction
             # may reference the first segment's pixels — materialize the
             # batched fast path's reconstruction first
@@ -287,7 +291,10 @@ class HevcDecoder:
         ref_lists = self._build_ref_lists(hdr, sps)
         if not hdr.first_slice_in_pic:
             # a further slice joins the picture: the batched fast path is
-            # per-slice-causal only — materialize what was parsed so far
+            # per-slice-causal only — materialize what was parsed so far;
+            # the slice itself takes the scalar walk, which the card's
+            # decoder does not run
+            self._no_host_walk("a picture's second or later slice")
             self._materialize_fast(sps, pps)
         if hdr.first_slice_in_pic and self._fast_eligible(sps, pps, hdr):
             # snapshot the scan-ahead parse state: an aborted attempt
@@ -485,11 +492,21 @@ class HevcDecoder:
                 l1 = [tmp1[i] for i in hdr.ref_list_modification[1]]
         return [l0, l1]
 
+    def _no_host_walk(self, what: str) -> None:
+        """Slices that only the scalar walk decodes (a picture's later
+        slices and dependent segments) raise NotImplementedError on any
+        device but the CPU: the card's decoder decodes no picture on the
+        host."""
+        if self.device.type != "cpu":
+            raise NotImplementedError(
+                "%s on the card (slice 10); HevcDecoder(device='cpu') "
+                "decodes it with the scalar walk" % what)
+
     def _check_fast_abort(self, hdr, ex) -> None:
         """A slice whose fast parse aborted on syntax outside the fast
         paths (NxN, an intra or inter TU split, a PU under 8x8) raises
         NotImplementedError naming it on any device but the CPU: the card's
-        decoder does not redo it on the host. The CPU decoder takes the
+        decoder decodes no picture on the host. The CPU decoder takes the
         scalar walk."""
         from .slice_dec import FastPathAbort
         if isinstance(ex, FastPathAbort) and self.device.type != "cpu":
@@ -505,43 +522,47 @@ class HevcDecoder:
         streams with the intra TU-split flag do: a TU that really splits
         aborts in the parse) with the standard 64/8 CTB geometry, no
         PCM/scaling/TS/bypass/CIP. Syntax outside coverage aborts per-CU
-        and falls back (`_check_fast_abort`). Without the native host
-        library the coder raises RuntimeError, as the encoder's does: the
-        fast path is the device path. A P or B slice outside the inter
-        fast path's coverage raises NotImplementedError on any device but
-        the CPU, whose decoder takes the scalar walk."""
+        (`_check_fast_abort`). Without the native host library the coder
+        raises RuntimeError, as the encoder's does: the fast path is the
+        device path. A slice outside the fast paths' coverage (for P and B
+        slices also tiles and quantization groups under 16 samples) raises
+        NotImplementedError naming the gaps on any device but the CPU,
+        whose decoder takes the scalar walk: the card's decoder decodes no
+        picture on the host."""
         if getattr(self, "_wf_coder", None) is None:
             from ..ops.wavefront import WavefrontIntraCoder
             self._wf_coder = WavefrontIntraCoder()
-        ok = (sps.max_transform_hierarchy_depth_intra <= 1
-              and sps.log2_ctb == 6 and sps.log2_min_cb == 3
-              and sps.log2_max_tb == 5
-              and sps.bit_depth_luma == 8
-              and not sps.pcm_enabled
-              and not sps.scaling_list_enabled
-              and not pps.transform_skip_enabled
-              and not pps.transquant_bypass_enabled
-              and not pps.constrained_intra_pred
-              and not pps.scaling_list_data_present)
-        if hdr.slice_type == I_SLICE:
-            return ok
-        # P/B coverage (the reference's gates): single-tile pictures; the
-        # chroma residual reads one QP per 4x4 chroma tile, so
-        # quantization groups must be >= 16 luma samples. PU/TU shapes
-        # outside the fast path abort per slice during the parse.
+        intra = hdr.slice_type == I_SLICE
+        kind = "I pictures" if intra else "P/B pictures"
         gaps = [name for bad, name in (
-            (pps.tiles_enabled, "tiles in P/B pictures"),
-            (pps.cu_qp_delta_enabled
-             and sps.log2_ctb - pps.diff_cu_qp_delta_depth < 4,
-             "quantization groups < 16 in P/B pictures"),
-            (not ok, "P/B pictures outside the fast path's geometry (at "
-             "most one intra TU split level, 64x64 CTBs, 8x8 CUs, 8 bits, "
-             "no PCM, scaling lists, transform skip, bypass or constrained "
-             "intra)")) if bad]
+            (sps.max_transform_hierarchy_depth_intra > 1,
+             "more than one intra TU split level"),
+            (sps.log2_ctb != 6 or sps.log2_min_cb != 3
+             or sps.log2_max_tb != 5,
+             "CTB, CU or TB sizes other than 64, 8 and 32"),
+            (sps.bit_depth_luma != 8, "a bit depth other than 8"),
+            (sps.pcm_enabled, "PCM"),
+            (sps.scaling_list_enabled or pps.scaling_list_data_present,
+             "scaling lists"),
+            (pps.transform_skip_enabled, "transform skip"),
+            (pps.transquant_bypass_enabled, "transquant bypass"),
+            (pps.constrained_intra_pred, "constrained intra prediction"))
+            if bad]
+        if not intra:
+            # P/B coverage (the reference's gates): single-tile pictures;
+            # the chroma residual reads one QP per 4x4 chroma tile, so
+            # quantization groups must be >= 16 luma samples. PU/TU shapes
+            # outside the fast path abort per slice during the parse.
+            gaps += [name for bad, name in (
+                (pps.tiles_enabled, "tiles"),
+                (pps.cu_qp_delta_enabled
+                 and sps.log2_ctb - pps.diff_cu_qp_delta_depth < 4,
+                 "quantization groups < 16")) if bad]
         if gaps and self.device.type != "cpu":
             raise NotImplementedError(
-                "; ".join(gaps) + " on the card (slice 8); "
-                "HevcDecoder(device='cpu') decodes them with the scalar walk")
+                "; ".join(g + " in " + kind for g in gaps) + " on the card "
+                "(slice 8); HevcDecoder(device='cpu') decodes them with the "
+                "scalar walk")
         return not gaps
 
     def _materialize_fast(self, sps=None, pps=None,

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "ks_decide_split": [_P] * 7 + [_I] * 3 + [_P],
     "ks_intra_level": [_P] * 12 + [_I] * 6 + [_P],
     "ks_deblock_edges": [_P] * 6 + [_I] * 10 + [_P],
-    "ks_intra_recon_level": [_P] * 8 + [_I] * 5 + [_P],
+    "ks_intra_recon": [_P] * 9 + [_I] * 4 + [_P],
     "ks_sao_stats": [_P] * 6 + [_I] * 8 + [_P],
     "ks_sao_apply": [_P] * 6 + [_I] * 7 + [_P],
     "ks_la_downsample": [_P] * 2 + [_I] * 3 + [_P],

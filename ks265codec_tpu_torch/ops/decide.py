@@ -46,8 +46,10 @@ reproduce the reference's float32 sequence on its CPU backend exactly:
   * the NxN tier's sum of four 4x4 costs is the running total
     fma(lam, rate, acc + D), read off the reference backend's fused loop
     (`nxn_plain`), and the replaced cost is (cost8 - cl8) + nxn_cost.
-The CUDA kernels (csrc/decide.cu) run the same sequence in one thread per
-block and are held against `decide_frames_plain`.
+The CUDA kernels (csrc/decide.cu: pass A one block per 64x64 region over
+compact candidate lists, pass B a team of warps per CU) run the same
+sequence, each float32 chain in one thread, and are held against
+`decide_frames_plain` and pass A against `pass_a_plain`.
 """
 
 from __future__ import annotations
@@ -296,6 +298,67 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 2, idx.expand(idx.shape[:3] + x.shape[3:]))
 
 
+def candidate_list(seed: torch.Tensor) -> torch.Tensor:
+    """The seeded tiers' compact candidate lists, as pass A's kernel builds
+    them: per CU its parent mode, the parent's two angular neighbours,
+    planar, DC, 26 and 10, in that order, a mode already listed becoming
+    -1. seed (...) parent modes -> (..., 7) int64."""
+    par = seed.to(torch.int64)
+    ang = par.clamp(min=2)
+    cand = torch.stack([
+        par, torch.where(par >= 2, 2 + ((ang - 2 + 1) % 33), 0),
+        torch.where(par >= 2, 2 + ((ang - 2 + 32) % 33), 1),
+        torch.zeros_like(par), torch.ones_like(par),
+        torch.full_like(par, 26), torch.full_like(par, 10)], -1)
+    dup = (cand[..., :, None] == cand[..., None, :]).tril(-1).any(-1)
+    return torch.where(dup, -1, cand)
+
+
+def _parents(mode16: torch.Tensor, n: int) -> torch.Tensor:
+    """A seeded tier's parent modes from the 16 tier's (F, h16, w16) mode
+    map: the 8 tier takes its 16-block's mode, the 32 tier the mode of its
+    top-left 16-block."""
+    if n == 8:
+        return mode16.repeat_interleave(2, 1).repeat_interleave(2, 2)
+    return mode16[:, ::2, ::2]
+
+
+def _pass_a(planes, n: int, seed=None):
+    """Pass A of one tier: every mode's prediction from the source refs,
+    the 8x8-Hadamard SATDs, the candidates (all 35, or the seed's
+    `candidate_list`) and best0, the SATD-only winner among them. planes
+    (F, h, w) int32, seed (F, h/n, w/n) parent modes or None. Returns
+    (preds (F, B, 35, n, n), blocks (F, B, n, n), satd (F, B, 35), in_cand
+    (F, B, 35) bool or None, best0 (F, B))."""
+    F = planes.shape[0]
+    refs = _source_refs(planes, n).reshape(-1, 4 * n + 1)
+    refs_f = _filter_refs(refs, n)
+    blocks = _blocks(planes, n)                              # (F, B, n, n)
+    B = blocks.shape[1]
+    preds = tintra.predict_all_modes(refs, refs_f, n, True).reshape(
+        F, B, 35, n, n)
+    costs = tcost.satd(preds, blocks[:, :, None], 8)
+    if seed is None:
+        return preds, blocks, costs, None, costs.argmin(-1)
+    cand = candidate_list(seed.reshape(F, B))
+    in_cand = (cand[..., None] == torch.arange(35, device=planes.device)) \
+        .any(-2)                                             # (F, B, 35)
+    big = torch.iinfo(costs.dtype).max
+    return preds, blocks, costs, in_cand, \
+        torch.where(in_cand, costs, big).argmin(-1)
+
+
+def pass_a_plain(planes: torch.Tensor, n: int, seed16=None):
+    """Plain version of `decide_pass_a_cuda`: planes (F, H, W) uint8,
+    seed16 the 16 tier's (F, H/16, W/16) modes or None. Returns (satd
+    (F, B, 35) int32, 0 at non-candidates; best0 (F, B) int32)."""
+    seed = _parents(seed16, n) if seed16 is not None else None
+    _, _, costs, in_cand, best0 = _pass_a(planes.to(torch.int32), n, seed)
+    if in_cand is not None:
+        costs = torch.where(in_cand, costs, 0)
+    return costs.to(torch.int32), best0.to(torch.int32)
+
+
 def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None,
           effort: int = 0, luma_cost: bool = False):
     """Mode, chroma mode and rough-RD cost maps of one CU size for all
@@ -309,28 +372,10 @@ def _tier(planes, cbs, crs, qp, qpc, lam, ls, n: int, btab, seed=None,
     F, h, w = planes.shape
     nby, nbx = h // n, w // n
     dev = planes.device
-    refs = _source_refs(planes, n).reshape(-1, 4 * n + 1)
-    refs_f = _filter_refs(refs, n)
-    blocks = _blocks(planes, n)                              # (F, B, n, n)
+    preds, blocks, costs, in_cand, best0 = _pass_a(planes, n, seed)
     B = blocks.shape[1]
-    preds = tintra.predict_all_modes(refs, refs_f, n, True).reshape(
-        F, B, 35, n, n)
-    costs = tcost.satd(preds, blocks[:, :, None], 8).to(torch.float32)
-    allm = torch.arange(35, device=dev)
+    costs = costs.to(torch.float32)
     inf = torch.tensor(float("inf"), device=dev)
-    if seed is None:
-        best0 = costs.argmin(-1)
-        in_cand = None
-    else:
-        par = seed.reshape(F, B).to(torch.int64)
-        ang = par.clamp(min=2)
-        cand = torch.stack([
-            par, torch.where(par >= 2, 2 + ((ang - 2 + 1) % 33), 0),
-            torch.where(par >= 2, 2 + ((ang - 2 + 32) % 33), 1),
-            torch.zeros_like(par), torch.ones_like(par),
-            torch.full_like(par, 26), torch.full_like(par, 10)], -1)
-        in_cand = (cand[..., None] == allm).any(-2)          # (F, B, 35)
-        best0 = torch.where(in_cand, costs, inf).argmin(-1)
     mbits = _mpm_bits(best0, n, nby, nbx)
     j = fma32(ls[:, None, None], mbits, costs)
     if in_cand is not None:
@@ -462,9 +507,8 @@ def decide_frames_plain(planes: torch.Tensor, cbs: torch.Tensor,
         t32 = _tier(*args, 32, btab, effort=1)
     else:
         mode16 = t16[0]
-        seed8 = mode16.repeat_interleave(2, 1).repeat_interleave(2, 2)
-        t8 = _tier(*args, 8, btab, seed8)
-        t32 = _tier(*args, 32, btab, mode16[:, ::2, ::2])
+        t8 = _tier(*args, 8, btab, _parents(mode16, 8))
+        t32 = _tier(*args, 32, btab, _parents(mode16, 32))
     return _splits(t8, t16, t32, nxn_maps)
 
 
@@ -520,55 +564,97 @@ def decide_frames(planes: torch.Tensor, cbs: torch.Tensor,
                               nxn=nxn)
 
 
-def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
-                       effort: int = 0, nxn: bool = False) -> dict:
-    """The decision pass on the card: `ks_decide_pass_a` and
-    `ks_decide_pass_b` per tier (16, then 8 and 32, seeded from the 16
-    tier at effort 0), with `nxn` (effort 1) the NxN tier's
-    `ks_decide_nxn_a` and `ks_decide_nxn_b` after the 8 tier, then
-    `ks_decide_split` per frame."""
-    from ..interop import device_bits_table, device_tables
+def _check_planes(planes, *chroma) -> None:
+    """planes (F, H, W) and any chroma planes (F, H/2, W/2): contiguous
+    uint8 CUDA tensors, padded to the 64x64 CTB grid."""
     F, H, W = planes.shape
-    for t, shape in ((planes, (F, H, W)), (cbs, (F, H // 2, W // 2)),
-                     (crs, (F, H // 2, W // 2))):
+    for t, shape in ((planes, (F, H, W)),) + tuple(
+            (c, (F, H // 2, W // 2)) for c in chroma):
         if (t.dtype != torch.uint8 or tuple(t.shape) != shape
                 or not t.is_cuda or not t.is_contiguous()):
             raise ValueError("planes must be contiguous uint8 CUDA tensors "
                              "(F, H, W) and (F, H/2, W/2)")
     if H % 64 or W % 64:
         raise ValueError("planes must be padded to the 64x64 CTB grid")
+
+
+def decide_pass_a_cuda(planes, n: int, seed16=None):
+    """Pass A of the n tier on the card (`ks_decide_pass_a`): per CU the
+    8x8-Hadamard SATD of every candidate mode (all 35, or with seed16, the
+    (F, H/16, W/16) 16 tier's modes, the 7 seeded candidates) and best0,
+    the SATD-only winner. planes (F, H, W) uint8 CUDA, padded to 64.
+    Returns (satd (F, B, 35) int32, 0 at non-candidates; best0 (F, B)
+    int32), B the tier's CUs in raster order."""
+    from ..interop import device_tables
+    _check_planes(planes)
+    F, H, W = planes.shape
+    dev = planes.device
+    nb = (H // n) * (W // n)
+    satd = torch.empty((F, nb, 35), dtype=torch.int32, device=dev)
+    best0 = torch.empty((F, nb), dtype=torch.int32, device=dev)
+    P = _build.ptr
+    _build.check(_build.kernels().ks_decide_pass_a(
+        P(planes), P(seed16) if seed16 is not None else None, P(satd),
+        P(best0), P(device_tables(dev)), F, H, W, n, int(seed16 is not None),
+        _build.stream(dev)), "ks_decide_pass_a")
+    _build.count("decide_pass_a")
+    return satd, best0
+
+
+def decide_pass_b_cuda(planes, cbs, crs, satd, best0, seed16, qp, qpc, lam,
+                       ls, n: int, effort: int, luma_cost: bool = False):
+    """Pass B of the n tier on the card (`ks_decide_pass_b`) from pass A's
+    satd and best0: MPM lists, the rough-RD candidates, the chroma mode and
+    the cost. qp/qpc, lam/ls: per-frame (F,) tensors on the card.
+    Returns (mode, cost, cmode, cl) as (F, H/n, W/n) maps; cl, the
+    luma-only cost, with luma_cost (effort 1) only, else None."""
+    from ..interop import device_bits_table, device_tables
+    _check_planes(planes, cbs, crs)
+    F, H, W = planes.shape
+    dev = planes.device
+    qp, qpc = qp.to(torch.int32).contiguous(), qpc.to(torch.int32).contiguous()
+    lam, ls = lam.float().contiguous(), ls.float().contiguous()
+    mode, cmode = (torch.empty((F, H // n, W // n), dtype=torch.int32,
+                               device=dev) for _ in range(2))
+    cost = torch.empty((F, H // n, W // n), dtype=torch.float32, device=dev)
+    cl = torch.empty_like(cost) if luma_cost else None
+    P = _build.ptr
+    opt = (lambda t: P(t) if t is not None else None)
+    _build.check(_build.kernels().ks_decide_pass_b(
+        P(planes), P(cbs), P(crs), P(satd), P(best0), opt(seed16), P(qp),
+        P(qpc), P(lam), P(ls), P(device_bits_table(dev)),
+        P(device_tables(dev)), P(mode), P(cost), P(cmode), opt(cl), F, H, W,
+        n, int(seed16 is not None), int(effort), _build.stream(dev)),
+        "ks_decide_pass_b")
+    _build.count("decide_pass_b")
+    return mode, cost, cmode, cl
+
+
+def decide_frames_cuda(planes, cbs, crs, qp, qpc, lam, ls,
+                       effort: int = 0, nxn: bool = False) -> dict:
+    """The decision pass on the card: `decide_pass_a_cuda` and
+    `decide_pass_b_cuda` per tier (16, then 8 and 32, seeded from the 16
+    tier at effort 0), with `nxn` (effort 1) the NxN tier's
+    `ks_decide_nxn_a` and `ks_decide_nxn_b` after the 8 tier, then
+    `ks_decide_split` per frame."""
     if nxn and not effort:
         raise ValueError("the NxN tier runs at effort 1 only")
-    lib = _build.kernels()
+    F, H, W = planes.shape
     dev = planes.device
-    tab, btab = device_tables(dev), device_bits_table(dev)
+    lib = _build.kernels()
     qp, qpc = qp.to(torch.int32).contiguous(), qpc.to(torch.int32).contiguous()
     lam, ls = lam.float().contiguous(), ls.float().contiguous()
     P, st = _build.ptr, _build.stream(dev)
     tiers = {}
     cl8 = None
     for n in (16, 8, 32):
-        seeded = int(n != 16 and not effort)
-        nb = (H // n) * (W // n)
-        satd = torch.empty((F, nb, 35), dtype=torch.int32, device=dev)
-        best0 = torch.empty((F, nb), dtype=torch.int32, device=dev)
-        m16 = P(tiers[16][0]) if seeded else None
-        _build.check(lib.ks_decide_pass_a(P(planes), m16, P(satd), P(best0),
-                                          P(tab), F, H, W, n, seeded, st),
-                     "ks_decide_pass_a")
-        _build.count("decide_pass_a")
-        mode, cmode = (torch.empty((F, H // n, W // n), dtype=torch.int32,
-                                   device=dev) for _ in range(2))
-        cost = torch.empty((F, H // n, W // n), dtype=torch.float32,
-                           device=dev)
-        if nxn and n == 8:
-            cl8 = torch.empty_like(cost)
-        _build.check(lib.ks_decide_pass_b(
-            P(planes), P(cbs), P(crs), P(satd), P(best0), m16, P(qp),
-            P(qpc), P(lam), P(ls), P(btab), P(tab), P(mode), P(cost),
-            P(cmode), P(cl8) if nxn and n == 8 else None, F, H, W, n,
-            seeded, int(effort), st), "ks_decide_pass_b")
-        _build.count("decide_pass_b")
+        seed = tiers[16][0] if n != 16 and not effort else None
+        satd, best0 = decide_pass_a_cuda(planes, n, seed)
+        mode, cost, cmode, cl = decide_pass_b_cuda(
+            planes, cbs, crs, satd, best0, seed, qp, qpc, lam, ls, n, effort,
+            luma_cost=nxn and n == 8)
+        if cl is not None:
+            cl8 = cl
         tiers[n] = (mode, cost, cmode)
     h8, w8 = H // 8, W // 8
     nxn_maps = None

@@ -22,9 +22,12 @@ scatters), both versions here read neighbour samples straight from the
 reconstruction planes; they read the same values because the schedule
 guarantees the neighbours are final.
 
-CUDA: csrc/intra_scan.cu, one launch per level (`ks_intra_level` codes,
-`ks_intra_recon_level` reconstructs), one thread block per scheduled CU
-(luma 8/16/32 plus its two chroma blocks), frame on blockIdx.y. The plain
+CUDA: csrc/intra_scan.cu. K6 (`ks_intra_level`) launches once per level,
+one thread block per scheduled CU (luma 8/16/32 plus its two chroma
+blocks), frame on blockIdx.y. K11 (`ks_intra_recon`) is one persistent
+launch per call: blocks take the CUs in ticket order (`ticket_order`:
+level, then frame) from an atomic counter, and a CU starts once its
+frame's completion counter shows every CU of a lower level done. The plain
 versions run the same arithmetic level by level. K18's residual is
 csrc/inter_recon.cu (one thread block per inter TU); see
 `recon_inter_filter`.
@@ -33,6 +36,7 @@ csrc/inter_recon.cu (one thread block per inter TU); see
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -46,6 +50,30 @@ from .transforms import dequant_itx, fwd_quant
 # record fields of one scheduled CU (int32)
 X, Y, SIZE, MODE, CMODE, QP, QPCB, QPCR, AL, AC, AT, VALID = range(12)
 NFIELDS = 12
+# a ticket (`ticket_order`): the record, its frame, and the number of CUs
+# of lower levels of that frame it waits for
+FRAME, WAIT = NFIELDS, NFIELDS + 1
+TFIELDS = NFIELDS + 2
+
+
+def ticket_order(recs: np.ndarray, levels: list,
+                 n_frames: int) -> np.ndarray:
+    """The persistent K11's host inputs: the valid records of a schedule
+    (the padding records dropped), in ticket order (level, then frame,
+    then slot), each with its frame and its frame's count of CUs of lower
+    levels, which the frame's completion counter must reach before the CU
+    starts. (T, TFIELDS) int32."""
+    out = [np.zeros((0, TFIELDS), np.int32)]
+    below = np.zeros(n_frames, np.int64)
+    for base, kmax in levels:
+        lvl = recs[base:base + n_frames * kmax].reshape(n_frames, kmax,
+                                                        NFIELDS)
+        valid = lvl[..., VALID] == 1
+        f, slot = np.nonzero(valid)               # frame, then slot
+        out.append(np.concatenate([lvl[f, slot], f[:, None],
+                                   below[f][:, None]], 1).astype(np.int32))
+        below += valid.sum(1)
+    return np.concatenate(out)
 
 
 class LevelSchedule:
@@ -54,14 +82,28 @@ class LevelSchedule:
     recs[base : base + F*kmax] viewed as (F, kmax, 12), padded with
     VALID = 0."""
 
-    def __init__(self, recs: np.ndarray, levels: list, n_frames: int):
+    def __init__(self, recs, levels: list, n_frames: int):
         self.recs = recs
         self.levels = levels
         self.n_frames = n_frames
+        # the host copy `tickets` reads: K6 and the plain versions never
+        # build tickets, and a schedule moved to the card keeps it
+        self._host_recs = recs if isinstance(recs, np.ndarray) else None
 
     def to(self, device) -> "LevelSchedule":
-        return LevelSchedule(torch.as_tensor(self.recs, device=device),
-                             self.levels, self.n_frames)
+        out = LevelSchedule(torch.as_tensor(self.recs, device=device),
+                            self.levels, self.n_frames)
+        out._host_recs = self._host_recs
+        return out
+
+    @functools.cached_property
+    def tickets(self) -> np.ndarray:
+        """The persistent K11's form of the schedule (`ticket_order`),
+        built on first use."""
+        recs = self._host_recs
+        if recs is None:
+            recs = self.recs.cpu().numpy()
+        return ticket_order(recs, self.levels, self.n_frames)
 
     def level(self, i: int):
         base, kmax = self.levels[i]
@@ -402,7 +444,7 @@ def code_intra_frames_into_cuda(srcs, recs, levs, sched: LevelSchedule,
 
 def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
                             strong: bool, tables: torch.Tensor):
-    """K11 on the card: one launch of `ks_intra_recon_level` per level."""
+    """K11 on the card: one launch of `ks_intra_recon`."""
     recs = [torch.zeros(p.shape, dtype=torch.uint8, device=p.device)
             for p in (lev_y, lev_cb, lev_cr)]
     recon_intra_frames_into_cuda((lev_y, lev_cb, lev_cr), recs, sched,
@@ -412,8 +454,8 @@ def recon_intra_frames_cuda(lev_y, lev_cb, lev_cr, sched: LevelSchedule,
 
 def recon_intra_frames_into_cuda(levs, recs, sched: LevelSchedule,
                                  strong: bool, tables: torch.Tensor) -> None:
-    """`recon_intra_frames_into` on the card: one launch of
-    `ks_intra_recon_level` per level, in place."""
+    """`recon_intra_frames_into` on the card: one persistent launch of
+    `ks_intra_recon` over every level of the schedule, in place."""
     for t in levs:
         if t.dtype != torch.int16 or not t.is_cuda:
             raise ValueError("levels must be int16 CUDA tensors")
@@ -425,18 +467,21 @@ def recon_intra_frames_into_cuda(levs, recs, sched: LevelSchedule,
         raise ValueError("chroma planes must be (F, H/2, W/2)")
     if any(r.shape != lv.shape for r, lv in zip(recs, levs)):
         raise ValueError("reconstruction planes must match the levels")
+    if sched.n_frames != F:
+        raise ValueError("the schedule must cover the planes' frames")
     levs = [t.contiguous() for t in levs]
-    lib = _build.kernels()
-    rec_t = sched.recs.contiguous()
-    st = _build.stream(levs[0].device)
+    tickets = torch.as_tensor(sched.tickets, device=levs[0].device)
+    if tickets.shape[0] == 0:
+        return
+    tickets = tickets.to(torch.int32).contiguous()
+    # the ticket counter, then each frame's count of completed CUs
+    counters = torch.zeros(1 + F, dtype=torch.int32, device=levs[0].device)
     P = _build.ptr
-    for base, kmax in sched.levels:
-        rc = lib.ks_intra_recon_level(
-            P(levs[0]), P(levs[1]), P(levs[2]), P(recs[0]), P(recs[1]),
-            P(recs[2]), ctypes.c_void_p(rec_t.data_ptr() + base * NFIELDS * 4),
-            P(tables), kmax, F, H, W, int(strong), st)
-        _build.check(rc, "ks_intra_recon_level")
-        _build.count("intra_recon")
+    _build.check(_build.kernels().ks_intra_recon(
+        P(levs[0]), P(levs[1]), P(levs[2]), P(recs[0]), P(recs[1]),
+        P(recs[2]), P(tickets), P(counters), P(tables), tickets.shape[0], H,
+        W, int(strong), _build.stream(levs[0].device)), "ks_intra_recon")
+    _build.count("intra_recon")
 
 
 def recon_intra_frames(lev_y, lev_cb, lev_cr, sched: LevelSchedule,

@@ -191,21 +191,19 @@ def test_sao_apply_kernel_matches_plain(dev, sao_luma, sao_chroma):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("qp", [0, 51])
-@pytest.mark.parametrize("tiles", ["", "3x2"])
-def test_intra_recon_kernel_matches_plain(dev, qp, tiles):
-    """K11 from sparse random levels at QP 0 and 51 on a 200x120 picture,
-    with and without tiles."""
-    enc = HevcEncoder(EncoderConfig(width=200, height=120, preset="ultrafast",
+def _random_recon_case(dev, w, h, tiles, F, qp, seed):
+    """A random K11 batch of F pictures: CU maps, modes, per-frame
+    schedules packed as the encoder packs them, sparse random levels."""
+    enc = HevcEncoder(EncoderConfig(width=w, height=h, preset="ultrafast",
                                     intra_period=1, tiles=tiles), device=dev)
     sps, pps = enc.sps, enc.pps
-    rng = np.random.RandomState(qp + len(tiles))
+    rng = np.random.RandomState(seed)
     ph = sps.pic_height_in_ctbs * sps.ctb_size
     pw = sps.pic_width_in_ctbs * sps.ctb_size
     h8, w8 = ph >> 3, pw >> 3
     _, tile8, _ = tile_region_maps(pps, sps)
     batch = []
-    for f in range(2):
+    for f in range(F):
         log2m, modes8, cmodes8 = decision_maps8(
             rng.rand(ph // 32, pw // 32) < 0.5,
             rng.rand(ph // 16, pw // 16) < 0.5, rng.randint(0, 35, (h8, w8)),
@@ -214,18 +212,108 @@ def test_intra_recon_kernel_matches_plain(dev, qp, tiles):
         batch.append(dict(log2m=log2m, modes8=modes8, cmodes8=cmodes8,
                           qp_map8=np.full(log2m.shape, qp, np.uint8),
                           tile8=tile8))
-    sched = twf.WavefrontIntraCoder().pack(batch, 3, -2, sps).to(dev)
+    sched = twf.WavefrontIntraCoder().pack(batch, 3, -2, sps)
 
-    def lev(h, w):
-        mag = rng.geometric(0.3, (2, h, w)) * rng.choice([-1, 1], (2, h, w))
-        return torch.from_numpy(np.where(rng.rand(2, h, w) < 0.05, mag, 0)
+    def lev(hh, ww):
+        mag = rng.geometric(0.3, (F, hh, ww)) * rng.choice([-1, 1],
+                                                           (F, hh, ww))
+        return torch.from_numpy(np.where(rng.rand(F, hh, ww) < 0.05, mag, 0)
                                 .astype(np.int16)).to(dev)
 
-    levels = (lev(ph, pw), lev(ph // 2, pw // 2), lev(ph // 2, pw // 2))
+    return sched, (lev(ph, pw), lev(ph // 2, pw // 2), lev(ph // 2, pw // 2))
+
+
+@pytest.mark.parametrize("w,h,tiles,F,qp", [
+    (200, 120, "", 2, 0), (200, 120, "3x2", 2, 0), (200, 120, "", 2, 51),
+    (200, 120, "3x2", 2, 51), (64, 64, "", 1, 30), (64, 64, "", 16, 30),
+    (512, 384, "", 1, 30), (512, 384, "", 16, 30), (512, 384, "8x6", 1, 30),
+    (512, 384, "8x6", 16, 30)])
+def test_intra_recon_kernel_matches_plain(dev, w, h, tiles, F, qp):
+    """K11 from sparse random levels at QP 0, 30 and 51, with and without
+    tiles, at F = 1 (as the decoder runs it), 2 and 16: equal to the plain
+    version, one persistent `intra_recon` launch a call."""
+    from ks265codec_tpu_torch.ops import _build
+    sched, levels = _random_recon_case(dev, w, h, tiles, F, qp,
+                                       qp + len(tiles))
+    sched = sched.to(dev)
+    before = _build.launches.get("intra_recon", 0)
     got = twf.recon_intra_frames_cuda(*levels, sched, True, device_tables(dev))
+    assert _build.launches["intra_recon"] == before + 1
     want = twf.recon_intra_frames_plain(*levels, sched, True)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def test_intra_recon_persistent_seeded_matches_plain(dev):
+    """K11 in its seeded P-picture form: the intra CUs of a random intra
+    mask (`intra_subset`) reconstructed in place over random inter
+    samples, against the plain version."""
+    enc = HevcEncoder(EncoderConfig(width=320, height=192,
+                                    preset="ultrafast", intra_period=1),
+                      device=dev)
+    from ks265codec_tpu_torch.encode.merge_vec import zscan_vals
+    sps = enc.sps
+    rng = np.random.RandomState(7)
+    ph = sps.pic_height_in_ctbs * sps.ctb_size
+    pw = sps.pic_width_in_ctbs * sps.ctb_size
+    h8, w8 = ph >> 3, pw >> 3
+    log2m, modes8, cmodes8 = decision_maps8(
+        rng.rand(ph // 32, pw // 32) < 0.5, rng.rand(ph // 16, pw // 16) < 0.5,
+        rng.randint(0, 35, (h8, w8)), rng.randint(0, 35, (ph // 16, pw // 16)),
+        rng.randint(0, 35, (ph // 32, pw // 32)), sps, h8, w8)
+    coder = twf.WavefrontIntraCoder()
+    full = coder.build_schedule(log2m, sps.width, sps.height, sps.log2_ctb,
+                                sps.log2_min_cb)
+    intra8 = np.repeat(np.repeat(rng.rand(h8 // 4, w8 // 4) < 0.4, 4, 0), 4,
+                       1)[:h8, :w8]
+    sub = twf.intra_subset(full, intra8,
+                           zscan_vals(ph >> 2, pw >> 2, sps.log2_ctb))
+    assert len(sub[0]) > 0
+    sched = twf.pack_records([(sub, modes8, cmodes8,
+                               np.full((h8, w8), 27, np.int32))], 0, 0)
+    sched = sched.to(dev)
+    levels = [torch.from_numpy(np.where(rng.rand(1, hh, ww) < 0.05,
+                                        rng.randint(-9, 10, (1, hh, ww)), 0)
+                               .astype(np.int16)).to(dev)
+              for hh, ww in ((ph, pw), (ph // 2, pw // 2), (ph // 2, pw // 2))]
+    base = [torch.from_numpy(rng.randint(0, 256, tuple(lv.shape))
+                             .astype(np.uint8)).to(dev) for lv in levels]
+    got = [b.clone() for b in base]
+    want = [b.clone() for b in base]
+    twf.recon_intra_frames_into(levels, got, sched, True)
+    twf.recon_intra_frames_into(levels, want, sched, True, reference=True)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("effort,nxn", [(0, False), (1, False), (1, True)])
+@pytest.mark.parametrize("F", [1, 16])
+@pytest.mark.parametrize("w,h", [(1280, 768), (320, 256), (192, 320)])
+def test_decide_redesign_matches_plain(dev, w, h, F, effort, nxn):
+    """K5's region pass A and team pass B at both efforts, with and
+    without the NxN tier, on one frame and 16: pass A's SATDs and best0 of
+    every tier against `pass_a_plain`, and all 13 maps (the costs and the
+    frame total bit for bit) against `decide_frames_plain`."""
+    rng = np.random.RandomState(w + F + effort)
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = np.stack([np.clip(128 + 60 * np.sin((xx + 5 * t) / (9.0 + t))
+                          * np.cos(yy / 13.0) + rng.randn(h, w) * 6, 0, 255)
+                  for t in range(F)]).astype(np.uint8)
+    c = [np.clip(128 + rng.randn(F, h // 2, w // 2) * k, 0, 255)
+         .astype(np.uint8) for k in (8, 20)]
+    src = [torch.from_numpy(p).to(dev).contiguous() for p in [y] + c]
+    qps = [22 + 3 * (f % 8) for f in range(F)]
+    args = [torch.as_tensor(a, device=dev) for a in tdec.frame_lambdas(qps)]
+    got = tdec.decide_frames_cuda(*src, *args, effort=effort, nxn=nxn)
+    want = tdec.decide_frames_plain(*src, *args, effort=effort, nxn=nxn)
+    for name in tdec.MAP_NAMES:
+        assert torch.equal(got[name], want[name]), name
+    for n in (16, 8, 32):
+        seed = want["mode16"] if n != 16 and not effort else None
+        ka = tdec.decide_pass_a_cuda(src[0], n, seed)
+        pa = tdec.pass_a_plain(src[0], n, seed)
+        for a, b in zip(ka, pa):
+            assert torch.equal(a, b), n
 
 
 def test_sao_encode_and_decode_kernels_match_plain(dev):

@@ -153,7 +153,19 @@ def _port_stream(kw):
     return data, [frame_md5(r) for r in recons]
 
 
+_JAX_STREAMS = {}
+
+
 def _jax_stream(kw):
+    """The JAX encoder's stream of `_frames()` and its recon md5s, encoded
+    once per process for each configuration."""
+    key = tuple(sorted(kw.items()))
+    if key not in _JAX_STREAMS:
+        _JAX_STREAMS[key] = _jax_encode(kw)
+    return _JAX_STREAMS[key]
+
+
+def _jax_encode(kw):
     planes = _frames()
     cfg = dict(width=W, height=H, qp=27, intra_period=1, preset="ultrafast")
     cfg.update(kw)
@@ -185,6 +197,21 @@ def test_decoder_matches_reference_decoder(name, monkeypatch):
         want = [jax_md5(f) for f in JaxDecoder().decode_all(data)]
     assert len(got) == 2
     assert got == want == enc_md5
+
+
+def test_card_decoder_raises_on_a_later_slice():
+    """A picture's second slice (the reference writes it as a dependent
+    segment) takes the scalar walk: the card's decoder raises on it
+    (before any launch) where it used to decode it on the host; the CPU
+    decoder decodes the stream to the encoder's md5s."""
+    data, enc_md5 = _jax_stream(dict(slices=2))
+    card = HevcDecoder(device="cpu")
+    card.device = torch.device("cuda")
+    with pytest.raises(NotImplementedError,
+                       match="dependent slice segment on the card"):
+        card.decode_all(data)
+    cpu = HevcDecoder(device="cpu")
+    assert [frame_md5(f) for f in cpu.decode_all(data)] == enc_md5
 
 
 def test_b_slices_are_eligible_weighted_prediction_raises():

@@ -41,10 +41,12 @@ from ks265codec_tpu.encode.config import EncoderConfig as JaxConfig
 from ks265codec_tpu.encode.encoder import HevcEncoder as JaxEncoder
 from ks265codec_tpu.utils.md5 import frame_md5 as jax_md5
 from ks265codec_tpu.utils.yuv import YUVFrame as JaxFrame
+from ks265codec_tpu_torch.bitstream.nal import is_vcl, split_annexb
 from ks265codec_tpu_torch.decode.decoder import HevcDecoder
 from ks265codec_tpu_torch.decode.slice_dec import FastPathAbort
 from ks265codec_tpu_torch.encode.config import EncoderConfig, resolve_preset
-from ks265codec_tpu_torch.encode.encoder import HevcEncoder, unsupported
+from ks265codec_tpu_torch.encode.encoder import HevcEncoder, encode_sequence, \
+    unsupported
 from ks265codec_tpu_torch.hevc.slicehdr import B_SLICE, I_SLICE, P_SLICE, \
     SliceHeader
 from ks265codec_tpu_torch.ops import decide as tdec
@@ -412,7 +414,7 @@ def test_scalar_walk_kept_elsewhere(device, slice_type, exc):
 def test_fast_path_admits_one_intra_split_level(depth, ok, slice_type):
     """An SPS that allows one intra TU split level keeps I, P and B
     pictures on the fast paths (a TU that splits aborts in the parse);
-    deeper ones leave it, and on the card a P/B picture then raises."""
+    deeper ones leave it, and on the card any picture then raises."""
     import copy
     enc = HevcEncoder(EncoderConfig(width=W, height=H, preset="fast",
                                     intra_period=1), device="cpu")
@@ -422,8 +424,84 @@ def test_fast_path_admits_one_intra_split_level(depth, ok, slice_type):
     assert HevcDecoder(device="cpu")._fast_eligible(sps, enc.pps, hdr) == ok
     card = HevcDecoder(device="cpu")
     card.device = torch.device("cuda")
-    if ok or slice_type == I_SLICE:
+    if ok:
         assert card._fast_eligible(sps, enc.pps, hdr) == ok
     else:
         with pytest.raises(NotImplementedError, match="intra TU split"):
             card._fast_eligible(sps, enc.pps, hdr)
+
+
+def _outside_geometry(enc, gap):
+    """(sps, pps) of `enc` with one I-picture gap of the fast path."""
+    import copy
+    sps, pps = copy.copy(enc.sps), copy.copy(enc.pps)
+    if gap == "PCM":
+        sps.pcm_enabled = 1
+    elif gap == "transform skip":
+        pps.transform_skip_enabled = 1
+    else:
+        sps.max_transform_hierarchy_depth_intra = 2
+    return sps, pps
+
+
+@pytest.mark.parametrize("gap", ["PCM", "transform skip", "intra TU split"])
+def test_card_decoder_raises_on_an_i_slice_outside_the_fast_path(gap):
+    """An I slice outside the fast path's geometry raises on the card,
+    naming the gap as the P/B branch does, where it used to be decoded on
+    the host scalar walk; the CPU decoder still takes that walk."""
+    enc = HevcEncoder(EncoderConfig(width=W, height=H, preset="fast",
+                                    intra_period=1), device="cpu")
+    sps, pps = _outside_geometry(enc, gap)
+    hdr = SliceHeader(slice_type=I_SLICE)
+    assert HevcDecoder(device="cpu")._fast_eligible(sps, pps, hdr) is False
+    card = HevcDecoder(device="cpu")
+    card.device = torch.device("cuda")      # no launch happens here
+    with pytest.raises(NotImplementedError, match=gap + ".* in I pictures"):
+        card._fast_eligible(sps, pps, hdr)
+
+
+def _one_slice_stream():
+    """The port's one-picture all-intra stream of `flat_left`, with the
+    picture's slice NAL written a second time after it."""
+    (y, u, v), = flat_left(1)
+    data, _ = encode_sequence(
+        [YUVFrame(y, u, v, poc=0)],
+        EncoderConfig(width=W, height=H, preset="ultrafast", intra_period=1),
+        device="cpu")
+    s, e = next((s, e) for s, e in split_annexb(data)
+                if is_vcl((data[s] >> 1) & 63))
+    return data + b"\x00\x00\x01" + data[s:e]
+
+
+@pytest.mark.parametrize("what", ["a picture's second or later slice",
+                                  "a dependent slice segment"])
+def test_card_decoder_raises_on_a_later_slice(what, monkeypatch):
+    """A slice after a picture's first (or a dependent segment) takes the
+    scalar walk, so the card's decoder raises on it before any launch; the
+    CPU decoder decodes it. The second copy of the picture's slice is read
+    as an independent later slice at CTB 0 or as a dependent segment."""
+    import ks265codec_tpu_torch.decode.decoder as decoder_mod
+    data = _one_slice_stream()
+    parse = decoder_mod.parse_slice_header
+    seen = []
+
+    def later_slice(*args, **kw):
+        hdr, sps, pps, reader = parse(*args, **kw)
+        seen.append(hdr)
+        if len(seen) == 2:
+            if what.startswith("a dependent"):
+                hdr.dependent_slice_segment = 1
+            else:
+                hdr.first_slice_in_pic = 0
+        return hdr, sps, pps, reader
+
+    monkeypatch.setattr(decoder_mod, "parse_slice_header", later_slice)
+    card = HevcDecoder(device="cpu")
+    card.device = torch.device("cuda")      # the raise comes before a launch
+    with pytest.raises(NotImplementedError, match=what + " on the card"):
+        card.decode_all(data)
+    assert len(seen) == 2
+    seen.clear()
+    out = HevcDecoder(device="cpu").decode_all(data)
+    assert len(seen) == 2 and len(out) == 1
+    assert out[0].y.shape == (H, W)

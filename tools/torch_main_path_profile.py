@@ -37,7 +37,14 @@ reconstruction `dec.inter_recon` (K14, the inter TUs' residual, K11),
 torch.profiler for the device time of every kernel and the device's busy
 share of the wall time, and once under cProfile for the host functions
 that take the wall time (cProfile slows Python calls, so its times are
-shares, not the plain run's). Run from the repository root:
+shares, not the plain run's). Each profiled run also sums the device time
+of K5's passes (`pass_a_kernel`, `pass_b_kernel`, the NxN tier, the
+split), K6 (`intra_level_kernel`) and K11's persistent
+`intra_recon_persistent_kernel`, or says that none was recorded. Each
+profiled session starts with a burst of small synchronised kernels,
+left out of the sums: after the longer runs a session lost its first
+device records (the fast all-intra batch's uploads and K5 launches).
+Run from the repository root:
 
     python3 tools/torch_main_path_profile.py
 """
@@ -117,6 +124,37 @@ def decode(stream):
     return out
 
 
+# device kernel names (symbol substrings) of the redesigned K5 and K11 and
+# of K6, summed per row under these labels in every profiled run
+KERNEL_ROWS = (("K5 pass A", "pass_a_kernel"), ("K5 pass B", "pass_b_kernel"),
+               ("K5 NxN tier", "nxn_"), ("K5 split", "split_kernel"),
+               ("K6 intra scan", "intra_level_kernel"),
+               ("K11 intra recon", "intra_recon_persistent_kernel"))
+
+
+# After the longer profiled runs, a profiler session on this card lost the
+# first device records of the next session: the fast all-intra batch's
+# uploads and K5 launches (PR 5, PR 11). Each session therefore starts
+# with a burst of small synchronised kernels whose records may be lost
+# instead, and which the sums leave out by name.
+ABSORB_NAMES: set = set()
+
+
+def absorb() -> None:
+    for _ in range(32):
+        torch.cuda._sleep(100)
+    torch.cuda.synchronize()
+
+
+def absorb_names() -> set:
+    """The device record names of `absorb`'s kernels."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        absorb()
+    return {ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def profile(label: str, fn, n: int) -> None:
     """Plain, traced, torch.profiler and cProfile runs of fn() (which
     handles n frames); fn() has been called once to warm up."""
@@ -140,12 +178,14 @@ def profile(label: str, fn, n: int) -> None:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        absorb()
         t0 = time.perf_counter()
         fn()
         prof_wall = time.perf_counter() - t0
     per_kernel = defaultdict(lambda: [0.0, 0])
     for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and ev.name not in ABSORB_NAMES):
             per_kernel[ev.name][0] += ev.device_time_total / 1e3   # ms
             per_kernel[ev.name][1] += 1
     busy = sum(v[0] for v in per_kernel.values())
@@ -156,6 +196,11 @@ def profile(label: str, fn, n: int) -> None:
         print(f"  {ms:10.3f}  {k:5d}  {name[:90]}")
     if not per_kernel:
         print("  no device events recorded: device time not measured")
+    for row, key in KERNEL_ROWS:
+        ms = sum(v[0] for k, v in per_kernel.items() if key in k)
+        k = sum(v[1] for name, v in per_kernel.items() if key in name)
+        print(f"  {row}: {ms:.3f} ms over {k} launches" if k else
+              f"  {row}: no device events")
 
     prof_host = cProfile.Profile()
     prof_host.enable()
@@ -175,6 +220,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {card}")
+    ABSORB_NAMES.update(absorb_names())
     frames = [YUVFrame(y, u, v, poc=i)
               for i, (y, u, v) in enumerate(synth_frames(32))]
     stream = b"".join(e.data for e in encode(frames))   # warm-up + build
